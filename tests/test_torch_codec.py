@@ -1,0 +1,96 @@
+"""The port's shard codec against the JAX package's, on the CPU.
+
+The port's plain encode/decode (the CPU path of ``kernels.ops``) must be
+bit-identical to ``optim.compression.int8_quantize``/``int8_dequantize`` and
+to the Pallas ``shard_encode_kernel``/``shard_decode_kernel`` (interpret
+mode), for whole and ragged sizes.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.shard_codec import shard_decode_kernel, shard_encode_kernel
+from repro.optim import compression as jax_comp
+from repro_torch.kernels import ops
+from repro_torch.kernels import shard_codec as codec
+from repro_torch.optim import compression as torch_comp
+
+# nb values of tests/test_codec.py::test_shard_codec_roundtrip_awkward_block_counts
+NB_CASES = [1, 7, 97, 300, 510, 1000]
+RAGGED_SIZES = [1, 255, 257, 1000, 768 * 3 + 5]
+
+
+def _x(n, seed, scale=3.0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * scale).astype(np.float32)
+    x[::17] *= 1e-3  # small values: codes near zero, rounding ties
+    return x
+
+
+@pytest.mark.parametrize("nb", NB_CASES)
+def test_plain_codec_bit_identical_to_pallas_kernels(nb):
+    x = _x(nb * 256, nb)
+    jc, js = shard_encode_kernel(jnp.asarray(x.reshape(nb, 256)))
+    tc, ts = codec.shard_encode_plain(torch.from_numpy(x))
+    assert np.array_equal(tc.numpy(), np.asarray(jc))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    jd = shard_decode_kernel(jc, js)
+    td = codec.shard_decode_plain(tc, ts)
+    assert np.array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("n", RAGGED_SIZES + [nb * 256 for nb in NB_CASES])
+def test_plain_codec_bit_identical_to_int8_quantize(n):
+    x = _x(n, n)
+    jc, js, meta = jax_comp.int8_quantize(jnp.asarray(x))
+    tc, ts = ops.shard_encode(torch.from_numpy(x))
+    assert np.array_equal(tc.numpy(), np.asarray(jc))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    jd = np.asarray(jax_comp.int8_dequantize(jc, js, meta))
+    td = ops.shard_decode(tc, ts, n)
+    assert np.array_equal(td.numpy(), jd.reshape(-1))
+
+
+@pytest.mark.parametrize("shape", [(3, 100), (256,), (5, 7, 9)])
+def test_port_int8_quantize_matches_jax(shape):
+    x = _x(int(np.prod(shape)), 11).reshape(shape)
+    jc, js, jmeta = jax_comp.int8_quantize(jnp.asarray(x))
+    tc, ts, tmeta = torch_comp.int8_quantize(torch.from_numpy(x))
+    assert np.array_equal(tc.numpy(), np.asarray(jc))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    assert tmeta == (shape, torch.float32)
+    td = torch_comp.int8_dequantize(tc, ts, tmeta)
+    jd = jax_comp.int8_dequantize(jc, js, jmeta)
+    assert np.array_equal(td.numpy(), np.asarray(jd))
+    assert torch_comp.compressed_bytes(tc, ts) == jax_comp.compressed_bytes(jc, js)
+
+
+def test_degenerate_blocks_bit_identical():
+    """All-zero blocks hit the 1e-12 scale floor; exact halves test
+    round-half-to-even; huge values test the clamp."""
+    x = np.zeros(4 * 256, np.float32)
+    x[256:512] = np.arange(256, dtype=np.float32) - 127.5  # ties after scaling
+    x[512:768] = 3e38
+    x[768:] = -1e-30
+    jc, js, _ = jax_comp.int8_quantize(jnp.asarray(x))
+    tc, ts = codec.shard_encode_plain(torch.from_numpy(x))
+    assert np.array_equal(tc.numpy(), np.asarray(jc))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_cpu_wrappers_take_plain_path_without_counting():
+    ops.reset_launches()
+    c, s = ops.shard_encode(torch.ones(300))
+    ops.shard_decode(c, s, 300)
+    assert c.shape == (2, 256) and s.shape == (2,)
+    assert ops.launches == {"shard_encode": 0, "shard_decode": 0,
+                            "flash_attention": 0}
+
+
+def test_kernel_entry_points_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        codec.shard_encode_kernel(torch.ones(10))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec.shard_decode_kernel(torch.zeros((1, 256), dtype=torch.int8),
+                                  torch.ones(1))
