@@ -9,23 +9,29 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    source, all at once) and print the build time and ptxas's register and
    spill lines;
 2. hold every kernel against its plain PyTorch version on the card, at the
-   main path's shapes and over the JAX kernel sweep;
-3. the main path: full-width GPT-2 under ``ElasticTrainer`` with int8 state
-   replication — 3 steps on 2 logical devices, a scale-out, 2 steps on 3, a
-   scale-in, 2 steps on 2 — with the launch counters zeroed just before and
-   read just after;
-4. a reference check on a small input: reduced GPT-2's loss and gradient
-   norm through the kernels on the card against the plain versions on the
-   CPU;
+   shapes the main paths give it (read from the configs, at both global
+   batches, 8 and 12) and over the JAX kernel sweeps;
+3. the main paths, one per trained family, each at full width and full
+   depth under ``ElasticTrainer`` with int8 state replication — 3 steps on
+   2 logical devices, a scale-out, 2 steps on 3, a scale-in, 2 steps on 2 —
+   with the launch counters zeroed just before each path, read just after
+   it and held to the exact counts its config gives: GPT-2 (codec, flash
+   attention), RWKV-6 1.6B (codec, WKV6) and Zamba2 1.2B (codec, SSD, flash
+   attention); one profiled step each;
+4. a reference check on a small input: each reduced model's loss and
+   gradient norm through the kernels on the card against the plain
+   versions on the CPU;
 5. times: each kernel, its plain version and (attention) the library call,
    beside the least time the card could take (H100 SXM data sheet: 3.35 TB/s,
    989 TFLOP/s bf16, 67 TFLOP/s fp32).
 
-It prints one JSON line per kernel, a main-path line, the ``kernels`` line,
-the card's name and power limit from ``nvidia-smi``, and last the line
+It prints one JSON line per kernel and per path, the ``kernels`` line, the
+card's name and power limit from ``nvidia-smi``, and last the line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository around it, it exits non-zero and prints no result.
 """
+import bisect
+import gc
 import json
 import math
 import os
@@ -60,14 +66,49 @@ ATTN_SWEEP = [
 ]
 
 
+# The sweeps of tests/test_kernels.py (WKV_SWEEP, SSD_SWEEP); every case
+# runs with a given initial state, as there.
+WKV_SWEEP = [
+    # (B, S, H, hd, decay_lo, dtype)
+    (1, 64, 2, 16, -1.0, torch.float32),
+    (2, 128, 4, 32, -0.5, torch.float32),
+    (1, 128, 2, 64, -5.0, torch.float32),  # strong decay
+    (1, 96, 3, 16, -1.0, torch.float32),
+    (2, 128, 2, 32, -1.0, torch.bfloat16),
+]
+SSD_SWEEP = [
+    # (B, S, H, P, N, dtype)
+    (1, 64, 2, 16, 8, torch.float32),
+    (2, 128, 4, 32, 16, torch.float32),
+    (1, 128, 2, 64, 64, torch.float32),
+    (2, 128, 2, 32, 16, torch.bfloat16),
+]
+# The main paths, one per trained family, and their steps: before the
+# scale-out (2 logical devices), between it and the scale-in (3), after (2).
+PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b"]
+STEPS = (3, 2, 2)
+MAIN_BATCHES = (PER_DEVICE_BATCH * 2, PER_DEVICE_BATCH * 3)
+
+
 def tol(dtype):
     """``_tol`` of tests/test_kernels.py."""
     return (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
             else dict(rtol=2e-5, atol=2e-5))
 
 
+def rec_tol(dtype):
+    """``_rec_tol`` of tests/test_kernels.py: the sequential kernels and the
+    chunked plain versions sum in different orders."""
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+            else dict(rtol=1e-3, atol=1e-4))
+
+
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A progress line, stamped with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -122,48 +163,271 @@ def check_codec(codec, gen):
     return err
 
 
-def check_attention(fa, MaskSpec, gen):
-    B, S, H, hd = 8, SEQ, 12, 64
-    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    spec = MaskSpec("causal")
-    out = fa.flash_attention_kernel(q, k, v, scale=hd ** -0.5)
-    ref = fa.attention_plain(q, k, v, spec, scale=hd ** -0.5)
-    torch.testing.assert_close(out.float(), ref.float(), **tol(torch.bfloat16))
-    main_err = float((out.float() - ref.float()).abs().max())
-    log(f"attention (8, 1024, 12, 64) bf16 causal: max |kernel - plain| "
-        f"{main_err:.3e} (rtol/atol 2e-2)")
-    for i, (Bq, Sq, Skv, Hq, K, d, kind, window, prefix, softcap, dt) in \
-            enumerate(ATTN_SWEEP):
-        q = torch.randn((Bq, Sq, Hq, d), generator=gen, device="cuda").to(dt)
-        k = torch.randn((Bq, Skv, K, d), generator=gen, device="cuda").to(dt)
-        v = torch.randn((Bq, Skv, K, d), generator=gen, device="cuda").to(dt)
-        spec = MaskSpec(kind, window=window, prefix_len=prefix)
-        out = fa.flash_attention_kernel(q, k, v, scale=d ** -0.5,
-                                        softcap=softcap, kind=kind,
-                                        window=window, prefix_len=prefix)
-        ref = fa.attention_plain(q, k, v, spec, scale=d ** -0.5,
-                                 softcap=softcap)
-        torch.testing.assert_close(out.float(), ref.float(), **tol(dt))
+def main_shapes():
+    """The shapes each recurrent or attention kernel gets on the main paths,
+    read from the configs, at both global batches: ``{kernel: [(path,
+    shape), ...]}`` with attention ``(B, H, K, hd, softcap, rope_theta or
+    0)`` (causal, bf16, scale 1/sqrt(hd) as every config here), wkv6 ``(B,
+    S, H, hd)`` and ssd ``(B, S, H, P, N)``. One forward runs over the
+    global batch, so the batch is the cluster's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2
+
+    shapes = {"flash_attention": [], "wkv6": [], "ssd": []}
+    for name in PATHS:
+        cfg = get_config(name)
+        for B in MAIN_BATCHES:
+            if cfg.family in ("dense", "hybrid"):
+                theta = cfg.rope_theta if cfg.positions == "rope" else 0.0
+                shapes["flash_attention"].append((name, (
+                    B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                    cfg.attn_softcap, theta)))
+            if cfg.family == "ssm":
+                shapes["wkv6"].append((name, (B, SEQ, cfg.n_heads, cfg.head_dim)))
+            if cfg.family == "hybrid":
+                _, H, P, N = mamba2._dims(cfg)
+                shapes["ssd"].append((name, (B, SEQ, H, P, N)))
+    return shapes
+
+
+def attention_cases():
+    """``(label, case, rope_theta)``: the main paths' shapes, then the JAX
+    sweep; ``case`` in ATTN_SWEEP's layout."""
+    cases = [(f"{path} B={B}", (B, SEQ, SEQ, H, K, hd, "causal", 0, 0, softcap,
+                                torch.bfloat16), theta)
+             for path, (B, H, K, hd, softcap, theta)
+             in main_shapes()["flash_attention"]]
+    return cases + [(f"sweep {i}", c, 0.0) for i, c in enumerate(ATTN_SWEEP)]
+
+
+def attention_case(fa, gen, case, theta=0.0):
+    """The kernel against ``attention_plain`` at ``_tol`` on one case; q and
+    k go through RoPE first where ``theta`` is given, as in a RoPE config's
+    attention. Returns max |kernel - plain|."""
+    from repro_torch.models.layers import MaskSpec, rope
+
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+    q = torch.randn((B, Sq, H, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, Skv, K, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, Skv, K, d), generator=gen, device="cuda").to(dt)
+    if theta:
+        q = rope(q, torch.arange(Sq, device="cuda"), theta)
+        k = rope(k, torch.arange(Skv, device="cuda"), theta)
+    out = fa.flash_attention_kernel(q, k, v, scale=d ** -0.5, softcap=softcap,
+                                    kind=kind, window=window, prefix_len=prefix)
+    ref = fa.attention_plain(q, k, v, MaskSpec(kind, window=window,
+                                               prefix_len=prefix),
+                             scale=d ** -0.5, softcap=softcap)
+    torch.testing.assert_close(out.float(), ref.float(), **tol(dt))
+    return float((out.float() - ref.float()).abs().max())
+
+
+def check_attention(fa, gen):
+    """Every case of ``attention_cases``; returns the largest error at the
+    main paths' shapes."""
+    main_err = 0.0
+    for label, case, theta in attention_cases():
+        err = attention_case(fa, gen, case, theta)
+        if not label.startswith("sweep"):
+            main_err = max(main_err, err)
+            log(f"attention {label} {case[:6]} bf16 causal"
+                f"{', RoPE' if theta else ''}: max |kernel - plain| {err:.3e} "
+                f"(rtol/atol 2e-2)")
     log(f"attention: {len(ATTN_SWEEP)} sweep cases within _tol")
     return main_err
 
 
+def wkv6_inputs(gen, B, S, H, hd, dtype, decay=(-8.0, 3.0), state=False):
+    """r, k, v in ``dtype``; lw = -exp(uniform(decay)) clipped as
+    ``rwkv6._decay`` clips (the default spans its whole clip range), or,
+    with ``decay="init"``, -exp(-0.6 + 0.1·normal): the decays the RWKV-6
+    init gives (``w0`` = -0.6, the decay LoRA scaled 0.01); u; state."""
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    if decay == "init":
+        lw = -torch.exp(-0.6 + 0.1 * torch.randn((B, S, H, hd), generator=gen,
+                                                 device="cuda"))
+    else:
+        lo, hi = decay
+        lw = -torch.exp(lo + (hi - lo) * torch.rand((B, S, H, hd), generator=gen,
+                                                    device="cuda"))
+    lw = torch.clamp(lw, -60.0, -1e-6)
+    u = torch.randn((H, hd), generator=gen, device="cuda") * 0.3
+    st = (torch.randn((B, H, hd, hd), generator=gen, device="cuda") * 0.1
+          if state else None)
+    return r, k, v, lw, u, st
+
+
+def ssd_inputs(gen, B, S, H, P, N, dtype, state=False):
+    """x, Bm, Cm in ``dtype``; dt = softplus(normal) + 0.01 and A_log in
+    [-1, 1.5), as the JAX sweep draws them; state."""
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda")) + 0.01
+    A_log = torch.rand((H,), generator=gen, device="cuda") * 2.5 - 1.0
+    Bm, Cm = (torch.randn((B, S, N), generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    st = (torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.1
+          if state else None)
+    return x, dt, A_log, Bm, Cm, st
+
+
+def _close(name, got, want, dt):
+    torch.testing.assert_close(got, want, **rec_tol(dt), msg=lambda m: f"{name}: {m}")
+    return float((got - want).abs().max())
+
+
+def wkv6_cases():
+    """``(label, case)``, case ``(B, S, H, hd, decays, dtype, with_state,
+    chunk of the plain version, fp64 oracle too)``. At each of the RWKV-6
+    path's shapes:
+
+    * fp32 r/k/v (what the path gives) with the decays of the RWKV-6 init,
+      against the plain version at chunk 64;
+    * fp32 with decays over ``_decay``'s whole clip range, against the plain
+      version at chunk 16 and against the fp64 sequential oracle. There the
+      chunked form loses fp32 digits in its cumulative log-decay sums: at
+      chunk 64 it leaves ``_rec_tol`` of the fp64 oracle on a few elements
+      (logged), where the sequential kernel does not;
+    * bf16 r/k/v over the clip range, against chunk 64.
+
+    Then the JAX sweep with initial states, at chunk 64."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for path, shape in main_shapes()["wkv6"]:
+        label = f"{path} B={shape[0]}"
+        cases += [(label, (*shape, "init", f32, False, 64, False)),
+                  (label, (*shape, (-8.0, 3.0), f32, False, 16, True)),
+                  (label, (*shape, (-8.0, 3.0), bf16, False, 64, False))]
+    return cases + [(f"sweep {i}", (B, S, H, hd, (lo, 0.5), dt, True, 64, False))
+                    for i, (B, S, H, hd, lo, dt) in enumerate(WKV_SWEEP)]
+
+
+def wkv6_case(W, gen, case):
+    """The kernel against ``wkv6_plain``, out and final state, at
+    ``_rec_tol`` on one case of ``wkv6_cases``. Returns max |kernel -
+    plain| of out."""
+    B, S, H, hd, decay, dt, with_state, chunk, oracle = case
+    args = wkv6_inputs(gen, B, S, H, hd, dt, decay=decay, state=with_state)
+    out, sf = W.wkv6_kernel(*args)
+    ref_o, ref_s = W.wkv6_plain(*args, chunk=chunk)
+    err = _close(f"wkv6 {case}", out, ref_o, dt)
+    _close(f"wkv6 {case}, state", sf, ref_s, dt)
+    if oracle:
+        del ref_o, ref_s
+        o64, s64 = W.wkv6_ref(*(t.double() for t in args[:5]),
+                              None if args[5] is None else args[5].double())
+        err64 = _close(f"wkv6 {case} vs fp64", out.double(), o64, dt)
+        _close(f"wkv6 {case} vs fp64, state", sf.double(), s64, dt)
+        p_o, _ = W.wkv6_plain(*args, chunk=64)
+        t = rec_tol(dt)
+        p_bad = int(((p_o.double() - o64).abs() > t["atol"] + t["rtol"] * o64.abs()).sum())
+        log(f"wkv6 {(B, S, H, hd)} clip-range decays: |kernel - fp64 oracle| "
+            f"{err64:.3e}; the plain version at chunk "
+            f"64 is {float((p_o.double() - o64).abs().max()):.3e} from the "
+            f"oracle, outside _rec_tol on {p_bad} of {o64.numel()} outputs")
+    return err
+
+
+def check_wkv6(W, gen):
+    """Every case of ``wkv6_cases``; returns the largest error at the main
+    path's shapes."""
+    main_err = 0.0
+    for label, case in wkv6_cases():
+        err = wkv6_case(W, gen, case)
+        if not label.startswith("sweep"):
+            main_err = max(main_err, err)
+            B, S, H, hd, decay, dt, _, chunk, _ = case
+            log(f"wkv6 {label} {(B, S, H, hd)} {str(dt)[6:]} r/k/v, decays "
+                f"{decay}: max |kernel - plain (chunk {chunk})| {err:.3e}")
+    torch.cuda.synchronize()
+    log(f"wkv6: {len(WKV_SWEEP)} sweep cases within _rec_tol")
+    return main_err
+
+
+def ssd_cases():
+    """``(label, case)``, case ``(B, S, H, P, N, dtype, with_state)``: the
+    Zamba2 path's shapes (bf16 x/B/C, as the path gives them), then the JAX
+    sweep with initial states."""
+    cases = [(f"{path} B={shape[0]}", (*shape, torch.bfloat16, False))
+             for path, shape in main_shapes()["ssd"]]
+    return cases + [(f"sweep {i}", (*c, True)) for i, c in enumerate(SSD_SWEEP)]
+
+
+def ssd_case(SD, gen, case):
+    """The kernel against ``ssd_plain`` (chunk 64), y and final state, at
+    ``_rec_tol`` on one case of ``ssd_cases``. Returns max |kernel - plain|
+    of y."""
+    B, S, H, P, N, dt, with_state = case
+    args = ssd_inputs(gen, B, S, H, P, N, dt, state=with_state)
+    y, hf = SD.ssd_kernel(*args)
+    ref_y, ref_h = SD.ssd_plain(*args, chunk=64)
+    err = _close(f"ssd {case}", y, ref_y, dt)
+    _close(f"ssd {case}, state", hf, ref_h, dt)
+    return err
+
+
+def check_ssd(SD, gen):
+    """Every case of ``ssd_cases``; returns the largest error at the main
+    path's shapes."""
+    main_err = 0.0
+    for label, case in ssd_cases():
+        err = ssd_case(SD, gen, case)
+        if not label.startswith("sweep"):
+            main_err = max(main_err, err)
+            log(f"ssd {label} {case[:4]} N={case[4]} bf16: max |kernel - plain| "
+                f"{err:.3e}")
+    torch.cuda.synchronize()
+    log(f"ssd: {len(SSD_SWEEP)} sweep cases within _rec_tol")
+    return main_err
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the main path.
+# Phase 3: the main paths.
 # ---------------------------------------------------------------------------
 
 
-def main_path(ops):
+def _bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+def expected_launches(cfg, n_coded_leaves):
+    """The launches of one path's run, kernel by kernel: per step, each
+    layer's kernel once in the forward and once more in its remat
+    recompute (the backwards differentiate the plain versions and launch
+    nothing); Zamba2's shared attention block, applied outside the remat,
+    once per application; the codec once per fp32 leaf in the one
+    scale-out."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import zamba2
+
+    steps = sum(STEPS)
+    per_layer = steps * cfg.n_layers * (2 if cfg.remat else 1)
+    n = dict.fromkeys(ops.launches, 0)
+    n["shard_encode"] = n["shard_decode"] = n_coded_leaves
+    if cfg.family == "dense":
+        n["flash_attention"] = per_layer
+    elif cfg.family == "ssm":
+        n["wkv6"] = per_layer
+    elif cfg.family == "hybrid":
+        n["ssd"] = per_layer
+        n["flash_attention"] = steps * zamba2.n_shared_apps(cfg)
+    else:
+        raise ValueError(f"no main path for family {cfg.family!r}")
+    return n
+
+
+def main_path(ops, name):
+    """One family's main path. Returns (trainer, launches)."""
     from repro_torch import tree as T
     from repro_torch.configs import get_config
-    from repro_torch.core.replication import flatten_state
+    from repro_torch.core.replication import build_manifest
     from repro_torch.core.sharding_alg import NeighborLink
     from repro_torch.data import ShardedLoader, TokenStream
     from repro_torch.elastic import ElasticTrainer
     from repro_torch.models import build_model
 
-    cfg = get_config("gpt2")
+    cfg = get_config(name)
     model = build_model(cfg)
     loader = ShardedLoader(TokenStream(cfg.vocab, SEQ, seed=0), 4096, [0],
                            PER_DEVICE_BATCH)
@@ -181,9 +445,11 @@ def main_path(ops):
                              on_reshard=loader.reshard)
     trainer.init()
     n_params = sum(p.numel() for p in T.leaves(trainer.state["params"]))
-    log(f"main path: gpt2 at full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params} params), seq {SEQ}, per-device batch "
-        f"{PER_DEVICE_BATCH}, int8 codec")
+    manifest = build_manifest(trainer.state)
+    log(f"path {name}: full width and depth ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} params; state {manifest.total_bytes} "
+        f"bytes in {len(manifest.entries)} leaves), seq {SEQ}, per-device "
+        f"batch {PER_DEVICE_BATCH}, int8 codec")
     losses = []
 
     def steps(n):
@@ -199,28 +465,40 @@ def main_path(ops):
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    steps(3)
-    before = flatten_state(trainer.state)[0].clone()
+    steps(STEPS[0])
+    # The state before the scale-out, kept on the host (a device copy of a
+    # 19 GB state would crowd the card) and compared leaf by leaf, bit for
+    # bit, after it.
+    before = [leaf.detach().to("cpu", copy=True) for leaf in T.leaves(trainer.state)]
+    expected = expected_launches(cfg, sum(
+        1 for leaf in before if leaf.dtype == torch.float32 and leaf.numel()))
+    torch.cuda.empty_cache()
+    peak_train = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     ev_out = trainer.scale_out()
-    unchanged = torch.equal(before, flatten_state(trainer.state)[0])
+    peak_scale_out = torch.cuda.max_memory_allocated()
+    unchanged = all(torch.equal(_bytes(b.to(leaf.device)), _bytes(leaf))
+                    for b, leaf in zip(before, T.leaves(trainer.state)))
     del before
-    steps(2)
+    steps(STEPS[1])
     ev_in = trainer.scale_in()
-    steps(2)
+    steps(STEPS[2])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
+    peak = max(peak_train, peak_scale_out, torch.cuda.max_memory_allocated())
 
     if not unchanged:
-        raise AssertionError("scale-out changed the training state")
+        raise AssertionError(f"{name}: scale-out changed the training state")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path: {launches}")
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected {expected}")
     codec = ev_out.plan_summary["codec"]
     summary = {
+        "path": name,
+        "n_params": n_params,
+        "state_bytes": manifest.total_bytes,
         "losses": losses,
         "step_ms": {n: [t * 1e3 for t in ts] for n, ts in
                     trainer.metrics_snapshot()["step_times"].items()},
@@ -232,19 +510,23 @@ def main_path(ops):
         "codec": codec,
         "launches": launches,
         "wall_s": wall,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_mem_gb": peak / 1e9,
+        "peak_mem_scale_out_gb": peak_scale_out / 1e9,
     }
-    log("scale-out: state bit-unchanged, round-trip within scale/2, "
-        f"wire {codec['wire_bytes']} of {codec['payload_bytes']} bytes")
+    log(f"{name} scale-out: state bit-unchanged, round-trip within scale/2, "
+        f"wire {codec['wire_bytes']} of {codec['payload_bytes']} bytes; peak "
+        f"device memory {peak / 1e9:.1f} GB (scale-out "
+        f"{peak_scale_out / 1e9:.1f} GB)")
     log(json.dumps({"main_path": summary}))
-    profile_step(trainer, loader)
+    profile_step(trainer, loader, ops)
     return trainer, launches
 
 
-def profile_step(trainer, loader):
-    """Where one steady step's device time goes: kernels by self device
-    time (torch.profiler), and the device's busy share of the step's wall
-    time. Runs after the launch counters were read."""
+def profile_step(trainer, loader, ops):
+    """Where one steady step's device time goes: kernels by device time
+    (torch.profiler), and the device's busy share of the step's wall time;
+    the device time inside each plain backward (a ``record_function`` range
+    in ``kernels.ops``). Runs after the launch counters were read."""
     from torch.profiler import ProfilerActivity, profile
 
     toks = np.concatenate([loader.next_batch(i) for i in trainer.device_ids()])
@@ -254,13 +536,8 @@ def profile_step(trainer, loader):
         trainer.step({"tokens": toks})
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side events only (kernels, memcpys): the CPU-side operator rows
-    # of key_averages() would count their kernels a second time.
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
+    rows, ranges = device_times(prof.profiler.kineto_results.events(),
+                                ops.BACKWARD_RANGES)
     busy_ms = sum(r[0] for r in rows)
     steady = trainer.metrics_snapshot()["step_times"][len(trainer.active)][1:-1]
     step_ms = float(np.median(steady)) * 1e3
@@ -276,6 +553,55 @@ def profile_step(trainer, loader):
         log(f"  {ms:8.2f} ms {ms / busy_ms:6.1%}  {name}")
     for ms, count, key in rows[:12]:
         log(f"  {ms:8.2f} ms {ms / busy_ms:6.1%} {count:5d}x  {key[:80]}")
+    for key, (ms, count) in sorted(ranges.items()):
+        log(f"  inside {key} ({count}x, kernels of every group above): "
+            f"{ms:8.2f} ms {ms / busy_ms:6.1%}")
+
+
+def device_times(events, range_names):
+    """From a profile's raw events: ``rows``, (ms, count, name) of each
+    device event name (kernels, memcpys) by total duration, largest first;
+    and ``ranges``, name → (ms, count): the device time of the kernels
+    launched inside each CPU-side ``record_function`` range of
+    ``range_names``. A kernel's ``linked_correlation_id`` names the operator
+    that launched it. Raw events, not ``key_averages()``: building the
+    profiler's event tree takes minutes for the recurrent paths' hundreds of
+    thousands of events."""
+    cuda = torch.autograd.DeviceType.CUDA
+    per_name = {}
+    kernels = []  # (linked correlation id, ns)
+    launch_ns = {}  # operator correlation id -> its start
+    spans = {name: [] for name in range_names}
+    for e in events:
+        name = e.name()
+        if e.device_type() == cuda:
+            if name in spans or e.duration_ns() <= 0:
+                continue  # a range's device-side marker
+            ns, count = per_name.get(name, (0, 0))
+            per_name[name] = (ns + e.duration_ns(), count + 1)
+            kernels.append((e.linked_correlation_id(), e.duration_ns()))
+        elif name in spans:
+            spans[name].append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif e.linked_correlation_id() == 0 and e.correlation_id() > 0:
+            launch_ns[e.correlation_id()] = e.start_ns()
+    rows = sorted(((ns / 1e6, count, name)
+                   for name, (ns, count) in per_name.items()), reverse=True)
+    ranges = {}
+    for name, intervals in spans.items():
+        if not intervals:
+            continue
+        intervals.sort()
+        starts = [s for s, _ in intervals]
+        ns = 0
+        for corr, dur in kernels:
+            t = launch_ns.get(corr)
+            if t is None:
+                continue
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= intervals[i][1]:
+                ns += dur
+        ranges[name] = (ns / 1e6, len(intervals))
+    return rows, ranges
 
 
 def _kernel_group(key):
@@ -283,10 +609,14 @@ def _kernel_group(key):
     k = key.lower()
     if "flash_attention" in k:
         return "flash-attention kernel (forward and remat recompute)"
+    if "wkv6_fwd" in k:
+        return "wkv6 kernel (forward and remat recompute)"
+    if "ssd_fwd" in k:
+        return "ssd kernel (forward and remat recompute)"
     if "gemm" in k and "bf16" in k:
         return "bf16 GEMMs (projections, MLP, unembedding)"
     if "gemm" in k:
-        return "fp32 GEMMs (plain attention backward)"
+        return "fp32 GEMMs (plain backwards, fp32 projections)"
     if "softmax" in k:
         return "softmax (plain attention backward)"
     if "memcpy" in k or "copy" in k:
@@ -301,12 +631,12 @@ def _kernel_group(key):
 # ---------------------------------------------------------------------------
 
 
-def reference_check():
+def reference_check(name):
     from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config("gpt2").reduced()
+    cfg = get_config(name).reduced()
     cpu = build_model(cfg, device="cpu")
     gpu = build_model(cfg)
     state = cpu.init_train_state(torch.Generator().manual_seed(0))
@@ -316,15 +646,15 @@ def reference_check():
     _, m_gpu = gpu.make_train_step()(gstate, {"tokens": tokens})
     for key in ("loss", "grad_norm"):
         a, b = float(m_gpu[key]), float(m_cpu[key])
-        # bf16 activations on both sides; the kernel and the plain
-        # attention round differently: bf16's 2e-2.
+        # bf16 activations on both sides; the kernels and the plain
+        # versions round differently: bf16's 2e-2.
         if not math.isclose(a, b, rel_tol=2e-2):
-            raise AssertionError(f"reduced gpt2 {key}: card {a} vs cpu {b}")
+            raise AssertionError(f"reduced {name} {key}: card {a} vs cpu {b}")
     for path, leaf in T.flatten_with_paths(gstate["params"]):
         if not bool(torch.isfinite(leaf).all()):
             raise AssertionError(f"non-finite params at {path}")
-    log(f"reference: reduced gpt2 loss {float(m_gpu['loss']):.5f} on the card "
-        f"vs {float(m_cpu['loss']):.5f} on the cpu; grad_norm "
+    log(f"reference: reduced {name} loss {float(m_gpu['loss']):.5f} on the "
+        f"card vs {float(m_cpu['loss']):.5f} on the cpu; grad_norm "
         f"{float(m_gpu['grad_norm']):.5f} vs {float(m_cpu['grad_norm']):.5f}")
 
 
@@ -380,6 +710,41 @@ def time_attention(fa, MaskSpec, gen):
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
+def time_wkv6(W, gen, shape):
+    """At the RWKV-6 path's shape (global batch 8) and dtypes (fp32 r/k/v
+    and decays)."""
+    args = wkv6_inputs(gen, *shape, torch.float32)
+    k_ms = cuda_ms(lambda: W.wkv6_kernel(*args), 20)
+    p_ms = cuda_ms(lambda: W.wkv6_plain(*args, chunk=64), 3, 1)
+    B, S, H, hd = shape
+    n = B * S * H * hd
+    # r, k, v, lw read, out written (fp32); u read; the final state written.
+    nbytes = 5 * 4 * n + 4 * H * hd + 4 * B * H * hd * hd
+    # Per (b, t, h) and state element: S = e*S + k*v (mul + FMA), o += r*S
+    # (FMA): 5 fp32 operations.
+    flops = 5 * n * hd
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
+
+
+def time_ssd(SD, gen, shape):
+    """At the Zamba2 path's shape (global batch 8) and dtypes (bf16 x/B/C,
+    fp32 dt)."""
+    args = ssd_inputs(gen, *shape, torch.bfloat16)
+    k_ms = cuda_ms(lambda: SD.ssd_kernel(*args), 20)
+    p_ms = cuda_ms(lambda: SD.ssd_plain(*args, chunk=64), 3, 1)
+    B, S, H, P, N = shape
+    # x read (bf16), y written (fp32); dt, A_log read (fp32), B and C read
+    # (bf16); the final state written.
+    nbytes = (2 * B * S * H * P + 4 * B * S * H * P + 4 * B * S * H + 4 * H
+              + 2 * 2 * B * S * N + 4 * B * H * P * N)
+    # Per (b, t, h) and state element: h = a*h + (dt x)*B (mul + FMA),
+    # y += C*h (FMA): 5 fp32 operations.
+    flops = 5 * B * S * H * P * N
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -401,6 +766,8 @@ def main():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import shard_codec as codec
+    from repro_torch.kernels import ssd as SD
+    from repro_torch.kernels import wkv6 as W
     from repro_torch.models.layers import MaskSpec
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -418,34 +785,58 @@ def main():
 
     # Phase 2: kernels against plain versions.
     gen = torch.Generator(device="cuda").manual_seed(0)
-    codec_err = check_codec(codec, gen)
-    attn_err = check_attention(fa, MaskSpec, gen)
+    errs = {"shard_encode": check_codec(codec, gen)}
+    errs["shard_decode"] = errs["shard_encode"]
+    errs["flash_attention"] = check_attention(fa, gen)
+    errs["wkv6"] = check_wkv6(W, gen)
+    errs["ssd"] = check_ssd(SD, gen)
 
-    # Phase 3: the main path.
-    trainer, launches = main_path(ops)
+    # Phase 3: the main paths, one family at a time.
+    launches = {name: 0 for name in ops.launches}
+    gpt2 = None
+    for name in PATHS:
+        trainer, path_launches = main_path(ops, name)
+        for k, n in path_launches.items():
+            launches[k] += n
+        if name == "gpt2":
+            gpt2 = trainer  # its state is the codec's timing input
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"launches over the three paths: {json.dumps(launches)}")
 
-    # Phase 4: small-input reference.
-    reference_check()
+    # Phase 4: small-input references.
+    for name in PATHS:
+        reference_check(name)
 
     # Phase 5: times.
-    enc, dec = time_codec(codec, trainer.state)
-    attn = time_attention(fa, MaskSpec, gen)
+    times = {}
+    times["shard_encode"], times["shard_decode"] = time_codec(codec, gpt2.state)
+    times["flash_attention"] = time_attention(fa, MaskSpec, gen)
+    shapes = main_shapes()
+    times["wkv6"] = time_wkv6(W, gen, shapes["wkv6"][0][1])
+    times["ssd"] = time_ssd(SD, gen, shapes["ssd"][0][1])
     rows = [
         ("shard_encode", "src/repro_torch/csrc/shard_codec.cu",
-         "src/repro/kernels/shard_codec.py:46", codec_err, enc),
+         "src/repro/kernels/shard_codec.py:46"),
         ("shard_decode", "src/repro_torch/csrc/shard_codec.cu",
-         "src/repro/kernels/shard_codec.py:70", codec_err, dec),
+         "src/repro/kernels/shard_codec.py:70"),
         ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:81", attn_err, attn),
+         "src/repro/kernels/flash_attention.py:81"),
+        ("wkv6", "src/repro_torch/csrc/wkv6.cu",
+         "src/repro/kernels/wkv6.py:68"),
+        ("ssd", "src/repro_torch/csrc/ssd.cu",
+         "src/repro/kernels/ssd.py:66"),
     ]
     kernels = []
-    for name, source, replaces, err, t in rows:
+    for name, source, replaces in rows:
+        t = times[name]
         bound_ms, bound_by = t["bound"]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
-               "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": t.get("library_ms")}
+               "max_abs_err": errs[name], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": t.get("library_ms")}
         kernels.append(row)
         log(json.dumps({"kernel": name, "kernel_ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": bound_ms,

@@ -1,5 +1,6 @@
-"""Architecture configs of the port. Only the GPT-2 family is registered:
-the other families of ``repro.configs`` come with their model code."""
+"""Architecture configs of the port: the families it trains — GPT-2
+(dense), RWKV-6 (ssm) and Zamba2 (hybrid). The other configs of
+``repro.configs`` come with their model code."""
 from repro_torch.configs.base import (
     SHAPE_CELLS,
     SHAPES,
@@ -11,7 +12,7 @@ from repro_torch.configs.base import (
 )
 
 # Import per-arch modules for registry side effects.
-from repro_torch.configs import gpt2  # noqa: F401
+from repro_torch.configs import gpt2, rwkv6_1_6b, zamba2_1_2b  # noqa: F401
 
 __all__ = [
     "ArchConfig",

@@ -40,6 +40,11 @@ SIGNATURES = {
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                   _I32, _I32, _I32, _F32, _F32, _I32, _I32,
                                   _I32, _I32, _P],
+    # r, k, v, lw, u, state (or null), out, final state; dtype, B, S, H, hd.
+    "repro_wkv6_fwd": [_P] * 8 + [_I32] * 5 + [_P],
+    # x, dt, A_log, Bm, Cm, state (or null), y, final state; dtype, B, S, H,
+    # P, N.
+    "repro_ssd_fwd": [_P] * 8 + [_I32] * 6 + [_P],
 }
 
 _lock = threading.Lock()

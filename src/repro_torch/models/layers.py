@@ -1,15 +1,15 @@
-"""Model layers of the dense GPT-2 path, from ``repro/models/layers.py``.
+"""Model layers of the trained families, from ``repro/models/layers.py``.
 
-Plain functions over nested param dicts, in the JAX module's order: norms,
-the blockwise mask, attention (which always runs the flash-attention kernel
-through ``kernels.ops``), the gelu2 MLP, embeddings and the cross-entropy.
+Plain functions over nested param dicts, in the JAX module's order: norms
+(layernorm, Gemma-style rmsnorm), RoPE, the blockwise mask, attention
+(which always runs the flash-attention kernel through ``kernels.ops``), the
+gelu2 MLP, embeddings and the cross-entropy.
 Params stay fp32 and are cast to the activation dtype at use, as in JAX.
 Initialisers take an explicit ``torch.Generator`` and device; they cannot
 reproduce ``jax.random`` draws, so tests convert JAX-initialised states
 instead (``repro_torch.convert``).
 
-Not ported yet: rmsnorm, RoPE, KV caches, cross-attention, the swiglu/geglu
-MLPs and untied unembeddings beyond their init.
+Not ported yet: KV caches, cross-attention and the swiglu/geglu MLPs.
 """
 from __future__ import annotations
 
@@ -33,6 +33,14 @@ def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def rmsnorm(x, scale, eps=1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    # Gemma-style (1 + scale); scale initialized at zero.
+    return (x * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))).to(dt)
+
+
 def layernorm(x, scale, bias, eps=1e-6):
     dt = x.dtype
     x = x.to(torch.float32)
@@ -43,8 +51,8 @@ def layernorm(x, scale, bias, eps=1e-6):
 
 
 def apply_norm(params, x, kind, eps=1e-6):
-    if kind != "layernorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"], eps)
     return layernorm(x, params["scale"], params["bias"], eps)
 
 
@@ -53,6 +61,26 @@ def init_norm(d, kind, device):
     if kind == "layernorm":
         p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
     return p
+
+
+# ---------------------------------------------------------------------------
+# RoPE.
+# ---------------------------------------------------------------------------
+
+
+def rope(x, positions, theta):
+    """x: (..., S, H, hd); positions: (..., S) integer. Half-split rotation
+    with fp32 angles."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -116,17 +144,22 @@ def init_attention(gen, cfg, device, d_in=None):
     }
 
 
-def attention_sublayer(params, x, cfg, spec: MaskSpec, *, is_local=None):
-    """Self-attention sublayer with no cache and no RoPE. x: (B, S, d)
-    normed input. Returns (B, S, d)."""
-    if cfg.positions == "rope":
-        raise NotImplementedError("RoPE is not ported yet")
+def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
+                       is_local=None):
+    """Self-attention sublayer with no cache. x: (B, S, d) normed input;
+    ``positions`` (S,) or (B, S) feed RoPE when ``cfg.positions == "rope"``.
+    Returns (B, S, d)."""
     B, S, _ = x.shape
     dt = x.dtype
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
     k = (x @ params["wk"].to(dt)).reshape(B, S, K, hd)
     v = (x @ params["wv"].to(dt)).reshape(B, S, K, hd)
+    if cfg.positions == "rope":
+        if positions is None:
+            raise ValueError("RoPE attention needs positions")
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     scale = cfg.query_scale if cfg.query_scale else 1.0 / math.sqrt(hd)
     o = blocked_attention(q, k, v, spec, scale=scale, softcap=cfg.attn_softcap,
                           q_offset=0, is_local=is_local)

@@ -1,4 +1,5 @@
-"""Model API of the port, dense family, from ``repro/models/model_api.py``.
+"""Model API of the port, from ``repro/models/model_api.py``: the dense
+(GPT-2), ssm (RWKV-6) and hybrid (Zamba2) families.
 
 ``build_model(cfg, device)`` returns a :class:`Model` exposing:
   * ``init(generator)`` → params
@@ -8,9 +9,9 @@
     (AdamW + global-norm clipping)
 
 Train batches are ``{"tokens": (B, S+1)}`` integer tokens. There is no
-``use_pallas`` switch: attention always runs the port's kernel on CUDA.
-Serving (``prefill``/``decode_step``) and the other families are not ported
-yet.
+``use_pallas`` switch: attention, WKV6 and SSD always run the port's
+kernels on CUDA. Serving (``prefill``/``decode_step``) and the moe, vlm and
+encdec families are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,10 +24,20 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer, zamba2
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 
 AUX_COEF = 0.01
+#: family → (init, forward) of the ported families.
+_FAMILIES = {
+    "dense": (transformer.init_transformer, transformer.forward),
+    "ssm": (rwkv6.init_rwkv6, rwkv6.forward),
+    "hybrid": (zamba2.init_zamba2, zamba2.forward),
+}
+
+
+def _family_forward(cfg):
+    return _FAMILIES[cfg.family][1]
 
 
 @dataclasses.dataclass
@@ -38,7 +49,7 @@ class Model:
         """Params drawn from ``generator`` (default: seeded with 0)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        return transformer.init_transformer(self.cfg, generator, self.device)
+        return _FAMILIES[self.cfg.family][0](self.cfg, generator, self.device)
 
     def init_train_state(self, generator: Optional[torch.Generator] = None):
         params = self.init(generator)
@@ -49,7 +60,8 @@ class Model:
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        hidden, aux = transformer.forward(cfg, params, inputs, return_hidden=True)
+        hidden, aux = _family_forward(cfg)(cfg, params, inputs,
+                                           return_hidden=True)
         loss = L.chunked_cross_entropy(params["embed"], hidden, labels, cfg)
         total = loss + AUX_COEF * aux
         return total, {"loss": loss, "aux_loss": aux}
@@ -81,6 +93,6 @@ class Model:
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
     """``device``: CUDA unless given (``"cpu"`` runs the plain versions)."""
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return Model(cfg, resolve_device(device))

@@ -46,17 +46,10 @@ def init_transformer(cfg, gen: torch.Generator, device):
     }
 
 
-def _unstack(stacked, n: int) -> list:
-    """Per-layer views of the stacked params (one ``unbind`` per leaf, so
-    the backward stacks each leaf's gradient once)."""
-    paths, leaves = zip(*T.flatten_with_paths(stacked))
-    slices = [leaf.unbind(0) for leaf in leaves]
-    return [T.unflatten(paths, [s[i] for s in slices]) for i in range(n)]
-
-
-def _layer_body(cfg, x, lp, spec, is_local):
+def _layer_body(cfg, x, lp, spec, is_local, positions):
     h = L.apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
-    attn_out = L.attention_sublayer(lp["attn"], h, cfg, spec, is_local=is_local)
+    attn_out = L.attention_sublayer(lp["attn"], h, cfg, spec,
+                                    positions=positions, is_local=is_local)
     if cfg.post_norm:
         attn_out = L.apply_norm(lp["post_ln1"], attn_out, cfg.norm, cfg.norm_eps)
     x = x + attn_out
@@ -80,12 +73,12 @@ def forward(cfg, params, tokens, *, return_hidden: bool = False,
     spec = MaskSpec(kind="causal", window=cfg.sliding_window, prefix_len=0)
     # A uniform window applies to every layer; none leaves is_local unset.
     is_local = True if cfg.sliding_window > 0 else None
-    for lp in _unstack(params["layers"], cfg.n_layers):
+    for lp in T.unstack(params["layers"], cfg.n_layers):
         if cfg.remat:
-            x = checkpoint(_layer_body, cfg, x, lp, spec, is_local,
+            x = checkpoint(_layer_body, cfg, x, lp, spec, is_local, positions,
                            use_reentrant=False)
         else:
-            x = _layer_body(cfg, x, lp, spec, is_local)
+            x = _layer_body(cfg, x, lp, spec, is_local, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     if return_hidden:

@@ -44,3 +44,11 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     return fn(tree, *rest)
+
+
+def unstack(stacked, n: int) -> list:
+    """Per-layer views of the stacked params (one ``unbind`` per leaf, so
+    the backward stacks each leaf's gradient once)."""
+    paths, leaves = zip(*flatten_with_paths(stacked))
+    slices = [leaf.unbind(0) for leaf in leaves]
+    return [unflatten(paths, [s[i] for s in slices]) for i in range(n)]

@@ -8,24 +8,53 @@ runs where only PyTorch is installed:
 
 (``--noconftest``: the suite's conftest imports the JAX package.)
 """
+import importlib.util
+import pathlib
+
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import shard_codec as codec
+from repro_torch.kernels import ssd as SD
+from repro_torch.kernels import wkv6 as W
 from repro_torch.models.layers import MaskSpec
 
 pytestmark = pytest.mark.cuda
 
-ATTN_CASES = [
+
+def _load_chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: The card script's checks are the source of the cases, inputs and
+#: tolerances; the tests add ragged shapes and others no main path gives.
+chip_smoke = _load_chip_smoke()
+f32, bf16 = torch.float32, torch.bfloat16
+ATTN_CASES = chip_smoke.attention_cases() + [
     # (B, Sq, Skv, H, K, hd, kind, window, prefix, softcap, dtype)
-    (2, 1024, 1024, 12, 12, 64, "causal", 0, 0, 0.0, torch.bfloat16),  # gpt2
-    (1, 100, 100, 2, 2, 32, "causal", 0, 0, 0.0, torch.float32),  # ragged
-    (1, 96, 200, 4, 2, 16, "full", 0, 0, 0.0, torch.float32),  # ragged cross
-    (1, 256, 256, 2, 1, 32, "prefix", 16, 32, 0.0, torch.float32),
-    (1, 192, 192, 2, 2, 128, "causal", 48, 0, 30.0, torch.bfloat16),
+    ("ragged", (1, 100, 100, 2, 2, 32, "causal", 0, 0, 0.0, f32), 0.0),
+    ("ragged cross", (1, 96, 200, 4, 2, 16, "full", 0, 0, 0.0, f32), 0.0),
+    ("prefix window", (1, 256, 256, 2, 1, 32, "prefix", 16, 32, 0.0, f32), 0.0),
+    ("hd 128", (1, 192, 192, 2, 2, 128, "causal", 48, 0, 30.0, bf16), 0.0),
 ]
+WKV_CASES = chip_smoke.wkv6_cases() + [
+    ("ragged S", (1, 100, 3, 16, (-1.0, 0.5), f32, True, 64, False)),
+    ("chunk 32", (2, 128, 4, 32, (-0.5, 0.5), f32, True, 32, False)),
+]
+SSD_CASES = chip_smoke.ssd_cases() + [
+    ("fp32 long", (2, 1024, 8, 64, 64, f32, True)),
+    ("ragged S", (1, 100, 2, 16, 8, f32, True)),
+]
+
+
+def _ids(cases):
+    return [f"{i}-{c[0]}" for i, c in enumerate(cases)]
 
 
 @pytest.fixture
@@ -49,18 +78,10 @@ def test_codec_kernels_bit_identical_to_plain(gen, n):
                        codec.shard_decode_plain(pc, ps))
 
 
-@pytest.mark.parametrize("case", ATTN_CASES, ids=[str(i) for i in range(len(ATTN_CASES))])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=_ids(ATTN_CASES))
 def test_flash_attention_kernel_matches_plain(gen, case):
-    B, Sq, Skv, H, K, hd, kind, window, prefix, softcap, dt = case
-    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
-    k = torch.randn((B, Skv, K, hd), generator=gen, device="cuda").to(dt)
-    v = torch.randn((B, Skv, K, hd), generator=gen, device="cuda").to(dt)
-    out = fa.flash_attention_kernel(q, k, v, scale=hd ** -0.5, softcap=softcap,
-                                    kind=kind, window=window, prefix_len=prefix)
-    ref = fa.attention_plain(q, k, v, MaskSpec(kind, window, prefix),
-                             scale=hd ** -0.5, softcap=softcap)
-    tol = 2e-2 if dt == torch.bfloat16 else 2e-5  # _tol of test_kernels.py
-    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _, c, theta = case
+    chip_smoke.attention_case(fa, gen, c, theta)
 
 
 def test_wrappers_launch_and_count_on_cuda(gen):
@@ -72,8 +93,18 @@ def test_wrappers_launch_and_count_on_cuda(gen):
                     requires_grad=True)
     out = ops.flash_attention(q, q, q, MaskSpec("causal"), scale=0.2)
     out.sum().backward()
+    r = torch.randn((1, 64, 2, 16), generator=gen, device="cuda",
+                    requires_grad=True)
+    lw = -torch.rand((1, 64, 2, 16), generator=gen, device="cuda")
+    u = torch.zeros((2, 16), device="cuda")
+    ops.wkv6(r, r, r, lw, u)[0].sum().backward()
+    x = torch.randn((1, 64, 2, 16), generator=gen, device="cuda",
+                    requires_grad=True)
+    bc = torch.randn((1, 64, 8), generator=gen, device="cuda")
+    dt = torch.rand((1, 64, 2), generator=gen, device="cuda") + 0.01
+    ops.ssd(x, dt, torch.zeros(2, device="cuda"), bc, bc)[0].sum().backward()
     assert ops.launches == {"shard_encode": 1, "shard_decode": 1,
-                            "flash_attention": 1}
+                            "flash_attention": 1, "wkv6": 1, "ssd": 1}
 
 
 def test_flash_attention_gradient_is_the_plain_gradient(gen):
@@ -87,3 +118,63 @@ def test_flash_attention_gradient_is_the_plain_gradient(gen):
     fa.attention_plain(q, k, v, MaskSpec("causal"), scale=0.2).backward(g)
     for a, t in zip(grads, (q, k, v)):
         torch.testing.assert_close(a, t.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=_ids(WKV_CASES))
+def test_wkv6_kernel_matches_plain(gen, case):
+    chip_smoke.wkv6_case(W, gen, case[1])
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=_ids(SSD_CASES))
+def test_ssd_kernel_matches_plain(gen, case):
+    chip_smoke.ssd_case(SD, gen, case[1])
+
+
+def test_recurrence_kernels_refuse_unsupported_shapes(gen):
+    r = torch.zeros((1, 8, 2, 48), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        W.wkv6_kernel(r, r, r, r, torch.zeros((2, 48), device="cuda"))
+    x = torch.zeros((1, 8, 2, 16), device="cuda")
+    bc = torch.zeros((1, 8, 32), device="cuda")
+    with pytest.raises(ValueError, match="state dim"):
+        SD.ssd_kernel(x, torch.ones((1, 8, 2), device="cuda"),
+                      torch.zeros(2, device="cuda"), bc, bc)
+
+
+def test_profile_reader_matches_key_averages(gen):
+    """``chip_smoke.device_times`` reads the profiler's raw events in place
+    of ``key_averages()`` (which builds an event tree and takes minutes on a
+    full step): per device event name it must give the same time and count,
+    and per plain-backward range the same device time inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    r = torch.randn((2, 128, 2, 16), generator=gen, device="cuda",
+                    requires_grad=True)
+    lw = -torch.rand((2, 128, 2, 16), generator=gen, device="cuda")
+    x = torch.randn((2, 128, 2, 16), generator=gen, device="cuda",
+                    requires_grad=True)
+    bc = torch.randn((2, 128, 8), generator=gen, device="cuda")
+    dt = torch.rand((2, 128, 2), generator=gen, device="cuda") + 0.01
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.wkv6(r, r, r, lw, torch.zeros((2, 16), device="cuda"))[0].sum().backward()
+        ops.ssd(x, dt, torch.zeros(2, device="cuda"), bc, bc)[0].sum().backward()
+        torch.cuda.synchronize()
+    rows, ranges = chip_smoke.device_times(prof.profiler.kineto_results.events(),
+                                           ops.BACKWARD_RANGES)
+    averages = prof.key_averages()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    want = {e.key: (e.self_device_time_total / 1e3, e.count) for e in averages
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and e.key not in ops.BACKWARD_RANGES}
+    got = {name: (ms, count) for ms, count, name in rows}
+    assert got.keys() == want.keys() and len(got) > 5
+    for name, (ms, count) in want.items():
+        assert got[name][1] == count
+        assert got[name][0] == pytest.approx(ms, rel=1e-9, abs=1e-9)
+    want = {e.key: (e.device_time_total / 1e3, e.count) for e in averages
+            if e.key in ops.BACKWARD_RANGES and e.device_type == cpu}
+    assert set(ranges) == set(want) == {"wkv6_plain_backward", "ssd_plain_backward"}
+    for name, (ms, count) in want.items():
+        assert ranges[name][1] == count
+        assert ranges[name][0] == pytest.approx(ms, rel=1e-9, abs=1e-9)
+        assert ms > 0

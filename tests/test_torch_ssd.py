@@ -1,0 +1,131 @@
+"""The port's SSD (Mamba2 scan) against the JAX package's, on the CPU.
+
+The port's plain chunked SSD (the CPU path of ``ops.ssd``) is held to the
+Pallas ``ssd_kernel`` (interpret mode), to the XLA ``ssd_chunked`` and to
+``kernels/ref.ssd_ref`` over the JAX kernel sweep, under the JAX tests'
+``_rec_tol``; its gradients are held to ``jax.vjp`` of ``ops.ssd``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as R
+from repro.kernels.ssd import ssd_kernel as jax_ssd_kernel
+from repro.models.mamba2 import ssd_chunked
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd as SD
+
+# The sweep of tests/test_kernels.py (SSD_SWEEP), with dtype names.
+SSD_SWEEP = [
+    # (B, S, H, P, N, chunk, dtype)
+    (1, 64, 2, 16, 8, 16, "float32"),
+    (2, 128, 4, 32, 16, 32, "float32"),
+    (1, 128, 2, 64, 64, 64, "float32"),
+    (2, 128, 2, 32, 16, 32, "bfloat16"),
+]
+
+
+def _rec_tol(dtype):
+    """``_rec_tol`` of tests/test_kernels.py: the chunked and sequential
+    forms sum in different orders; bf16 inputs round first."""
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=1e-3, atol=1e-4))
+
+
+def _inputs(case, seed=7):
+    B, S, H, P, N = case[:5]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = (np.logaddexp(rng.standard_normal((B, S, H)), 0.0) + 0.01).astype(np.float32)
+    A_log = rng.uniform(-1.0, 1.5, (H,)).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((B, S, N)).astype(np.float32) for _ in range(2))
+    state = (rng.standard_normal((B, H, P, N)) * 0.1).astype(np.float32)
+    return x, dt, A_log, Bm, Cm, state
+
+
+def _torch(x, dtype="float32"):
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _jax(x, dtype="float32"):
+    return jnp.asarray(x).astype(getattr(jnp, dtype))
+
+
+@pytest.mark.parametrize("case", SSD_SWEEP, ids=[str(i) for i in range(len(SSD_SWEEP))])
+def test_plain_ssd_matches_pallas_kernel_chunked_and_ref(case):
+    chunk, dtype = case[5], case[6]
+    x, dt, A_log, Bm, Cm, st = _inputs(case)
+    jx, jB, jC = (_jax(a, dtype) for a in (x, Bm, Cm))
+    tx, tB, tC = (_torch(a, dtype) for a in (x, Bm, Cm))
+    y, hf = SD.ssd_plain(tx, _torch(dt), _torch(A_log), tB, tC, _torch(st),
+                         chunk=chunk)
+    assert y.dtype == hf.dtype == torch.float32
+    refs = [
+        jax_ssd_kernel(jx, _jax(dt), _jax(A_log), jB, jC, state=_jax(st),
+                       chunk=chunk),
+        ssd_chunked(jx, _jax(dt), _jax(A_log), jB, jC, state=_jax(st),
+                    chunk=chunk),
+        R.ssd_ref(jx, _jax(dt), _jax(A_log), jB, jC, state=_jax(st)),
+    ]
+    for ry, rh in refs:
+        np.testing.assert_allclose(y.numpy(), np.asarray(ry), **_rec_tol(dtype))
+        np.testing.assert_allclose(hf.numpy(), np.asarray(rh), **_rec_tol(dtype))
+    # The port's sequential oracle is the JAX oracle's twin.
+    ry, rh = R.ssd_ref(jx, _jax(dt), _jax(A_log), jB, jC, state=_jax(st))
+    py, ph = SD.ssd_ref(tx, _torch(dt), _torch(A_log), tB, tC, _torch(st))
+    np.testing.assert_allclose(py.numpy(), np.asarray(ry), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ph.numpy(), np.asarray(rh), rtol=1e-5, atol=1e-5)
+
+
+def test_plain_ssd_takes_a_sequence_the_chunk_does_not_divide():
+    """50 steps in chunks of 32: the padded steps (dt = 0) leave the state
+    as it is, so y and final state equal the sequential oracle's."""
+    x, dt, A_log, Bm, Cm, st = _inputs(SSD_SWEEP[1])
+    x, dt, Bm, Cm = (a[:, :50] for a in (x, dt, Bm, Cm))
+    args = (x, dt, A_log, Bm, Cm, st)
+    y, hf = SD.ssd_plain(*(_torch(a) for a in args), chunk=32)
+    ry, rh = R.ssd_ref(*(_jax(a) for a in args[:5]), state=_jax(st))
+    assert y.shape == (2, 50, 4, 32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), **_rec_tol("float32"))
+    np.testing.assert_allclose(hf.numpy(), np.asarray(rh), **_rec_tol("float32"))
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+def test_ssd_gradients_match_jax(with_state):
+    """The CPU path's backward differentiates ``ssd_plain`` at
+    ``min(chunk, 32)`` as ``_ssd_bwd`` differentiates ``ssd_chunked``: fp32
+    on both sides, so 1e-4 covers the summation order."""
+    case = (2, 64, 2, 16, 8, 64, "float32")
+    x, dt, A_log, Bm, Cm, st = _inputs(case, seed=3)
+    rng = np.random.default_rng(4)
+    g_y = rng.standard_normal(x.shape).astype(np.float32)
+    g_st = rng.standard_normal(st.shape).astype(np.float32)
+    args = [x, dt, A_log, Bm, Cm] + ([st] if with_state else [])
+
+    def f(*a):
+        return jax_ops.ssd(*a[:5], state=a[5] if with_state else None)
+
+    (jy, js), vjp = jax.vjp(f, *(_jax(a) for a in args))
+    jgrads = vjp((_jax(g_y), _jax(g_st)))
+    live = [_torch(a).requires_grad_(True) for a in args]
+    ops.reset_launches()
+    ty, ts = ops.ssd(*live[:5], state=live[5] if with_state else None)
+    torch.autograd.backward([ty, ts], [_torch(g_y), _torch(g_st)])
+    assert ops.launches["ssd"] == 0  # the CPU path runs no kernel
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ts.detach().numpy(), np.asarray(js), rtol=1e-4, atol=1e-4)
+    assert len(jgrads) == len(live)
+    for t, j in zip(live, jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_refuses_cpu_tensors():
+    """The kernel's entry point takes CUDA tensors only; the CPU path goes
+    through ``ops.ssd`` to the plain version."""
+    x = torch.zeros((1, 8, 2, 16))
+    bc = torch.zeros((1, 8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        SD.ssd_kernel(x, torch.ones((1, 8, 2)), torch.zeros(2), bc, bc)

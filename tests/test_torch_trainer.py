@@ -121,7 +121,7 @@ def test_membership_and_metrics(run):
     assert rep[3]["n_steps"] == 1 and rep[2]["n_steps"] == 3
     # The CPU path runs the plain versions: no kernel was launched.
     assert ops.launches == {"shard_encode": 0, "shard_decode": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "wkv6": 0, "ssd": 0}
     with pytest.raises(ValueError):
         tr.step({"tokens": np.zeros((3, SEQ + 1), np.int32)})
 
@@ -155,6 +155,11 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files
+             if "repro_torch" in p.parts}
+    assert {"kernels/wkv6.py", "kernels/ssd.py", "models/rwkv6.py",
+            "models/mamba2.py", "models/zamba2.py", "configs/rwkv6_1_6b.py",
+            "configs/zamba2_1_2b.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
