@@ -25,6 +25,12 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    beside the least time the card could take (H100 SXM data sheet: 3.35 TB/s,
    989 TFLOP/s bf16, 67 TFLOP/s fp32).
 
+    python3 chip_smoke.py --baseline DIR
+
+adds to phase 5 the times of the attention and SSD kernels built from the
+checkout at DIR (an earlier commit, unpacked), on the same inputs, in turns
+with this checkout's (baseline, kernel, kernel, baseline).
+
 It prints one JSON line per kernel and per path, the ``kernels`` line, the
 card's name and power limit from ``nvidia-smi``, and last the line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -35,6 +41,7 @@ import gc
 import json
 import math
 import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -64,6 +71,22 @@ ATTN_SWEEP = [
     (1, 256, 256, 8, 2, 64, "causal", 0, 0, 0.0, torch.bfloat16),
     (1, 128, 512, 2, 2, 32, "full", 0, 0, 0.0, torch.float32),
 ]
+# The bf16 kernel's own edges: a bf16 twin of every fp32 case of ATTN_SWEEP
+# (window, prefix, softcap, GQA, full, hd 16 and 32, Skv != Sq), then GQA
+# 8:1, hd 128, ragged Sq/Skv that no tile size divides, and a prefix with a
+# window, where whole, partial and empty KV tiles meet — at S = 1024 with
+# long runs of empty tiles between the prefix and the window.
+ATTN_BF16_EDGES = [c[:-1] + (torch.bfloat16,) for c in ATTN_SWEEP
+                   if c[-1] == torch.float32] + [
+    (1, 256, 256, 8, 1, 64, "causal", 0, 0, 0.0, torch.bfloat16),
+    (1, 256, 256, 2, 2, 128, "causal", 0, 0, 0.0, torch.bfloat16),
+    (1, 192, 192, 2, 2, 128, "causal", 48, 0, 30.0, torch.bfloat16),
+    (2, 1000, 1000, 4, 2, 64, "causal", 0, 0, 0.0, torch.bfloat16),
+    (1, 100, 300, 2, 1, 32, "full", 0, 0, 0.0, torch.bfloat16),
+    (1, 300, 300, 2, 2, 64, "prefix", 100, 40, 0.0, torch.bfloat16),
+    (1, 1024, 1024, 2, 2, 64, "prefix", 64, 64, 0.0, torch.bfloat16),
+    (1, 1024, 1024, 2, 1, 64, "causal", 128, 0, 0.0, torch.bfloat16),
+]
 
 
 # The sweeps of tests/test_kernels.py (WKV_SWEEP, SSD_SWEEP); every case
@@ -82,6 +105,15 @@ SSD_SWEEP = [
     (2, 128, 4, 32, 16, torch.float32),
     (1, 128, 2, 64, 64, torch.float32),
     (2, 128, 2, 32, 16, torch.bfloat16),
+]
+# The bf16 kernel's own edges: ragged last chunks (S 96, 100, 200), N 8 (padded
+# to the mma depth), every P, and a long sequence at the path's P and N.
+SSD_BF16_EDGES = [
+    (1, 96, 2, 16, 8, torch.bfloat16),
+    (1, 100, 3, 16, 8, torch.bfloat16),
+    (2, 200, 2, 32, 64, torch.bfloat16),
+    (1, 130, 2, 64, 16, torch.bfloat16),
+    (2, 1024, 4, 64, 64, torch.bfloat16),
 ]
 # The main paths, one per trained family, and their steps: before the
 # scale-out (2 logical devices), between it and the scale-in (3), after (2).
@@ -192,12 +224,13 @@ def main_shapes():
 
 def attention_cases():
     """``(label, case, rope_theta)``: the main paths' shapes, then the JAX
-    sweep; ``case`` in ATTN_SWEEP's layout."""
+    sweep and the bf16 edges; ``case`` in ATTN_SWEEP's layout."""
     cases = [(f"{path} B={B}", (B, SEQ, SEQ, H, K, hd, "causal", 0, 0, softcap,
                                 torch.bfloat16), theta)
              for path, (B, H, K, hd, softcap, theta)
              in main_shapes()["flash_attention"]]
-    return cases + [(f"sweep {i}", c, 0.0) for i, c in enumerate(ATTN_SWEEP)]
+    return (cases + [(f"sweep {i}", c, 0.0) for i, c in enumerate(ATTN_SWEEP)]
+            + [(f"sweep bf16 {i}", c, 0.0) for i, c in enumerate(ATTN_BF16_EDGES)])
 
 
 def attention_case(fa, gen, case, theta=0.0):
@@ -233,7 +266,8 @@ def check_attention(fa, gen):
             log(f"attention {label} {case[:6]} bf16 causal"
                 f"{', RoPE' if theta else ''}: max |kernel - plain| {err:.3e} "
                 f"(rtol/atol 2e-2)")
-    log(f"attention: {len(ATTN_SWEEP)} sweep cases within _tol")
+    log(f"attention: {len(ATTN_SWEEP)} sweep cases and {len(ATTN_BF16_EDGES)} "
+        f"bf16 edges within _tol")
     return main_err
 
 
@@ -348,10 +382,11 @@ def check_wkv6(W, gen):
 def ssd_cases():
     """``(label, case)``, case ``(B, S, H, P, N, dtype, with_state)``: the
     Zamba2 path's shapes (bf16 x/B/C, as the path gives them), then the JAX
-    sweep with initial states."""
+    sweep and the bf16 edges with initial states."""
     cases = [(f"{path} B={shape[0]}", (*shape, torch.bfloat16, False))
              for path, shape in main_shapes()["ssd"]]
-    return cases + [(f"sweep {i}", (*c, True)) for i, c in enumerate(SSD_SWEEP)]
+    return (cases + [(f"sweep {i}", (*c, True)) for i, c in enumerate(SSD_SWEEP)]
+            + [(f"sweep bf16 {i}", (*c, True)) for i, c in enumerate(SSD_BF16_EDGES)])
 
 
 def ssd_case(SD, gen, case):
@@ -378,7 +413,8 @@ def check_ssd(SD, gen):
             log(f"ssd {label} {case[:4]} N={case[4]} bf16: max |kernel - plain| "
                 f"{err:.3e}")
     torch.cuda.synchronize()
-    log(f"ssd: {len(SSD_SWEEP)} sweep cases within _rec_tol")
+    log(f"ssd: {len(SSD_SWEEP)} sweep cases and {len(SSD_BF16_EDGES)} bf16 "
+        f"edges within _rec_tol")
     return main_err
 
 
@@ -611,7 +647,7 @@ def _kernel_group(key):
         return "flash-attention kernel (forward and remat recompute)"
     if "wkv6_fwd" in k:
         return "wkv6 kernel (forward and remat recompute)"
-    if "ssd_fwd" in k:
+    if "ssd_fwd" in k or "ssd_chunked" in k:
         return "ssd kernel (forward and remat recompute)"
     if "gemm" in k and "bf16" in k:
         return "bf16 GEMMs (projections, MLP, unembedding)"
@@ -738,11 +774,67 @@ def time_ssd(SD, gen, shape):
     # (bf16); the final state written.
     nbytes = (2 * B * S * H * P + 4 * B * S * H * P + 4 * B * S * H + 4 * H
               + 2 * 2 * B * S * N + 4 * B * H * P * N)
-    # Per (b, t, h) and state element: h = a*h + (dt x)*B (mul + FMA),
-    # y += C*h (FMA): 5 fp32 operations.
-    flops = 5 * B * S * H * P * N
+    # The chunked form's products per (b, h) and chunk of L = 64, at the bf16
+    # tensor-core peak (2 flops a multiply-add): C·Bᵀ (L·L·N), M·X (L·L·P),
+    # C·hᵀ (L·N·P) and the state update (L·P·N). (Counted as the
+    # recurrence's 5·P·N fp32 operations per step at 67 TFLOP/s they gave
+    # 0.160 ms, which is not the work the bf16 kernel does.) The bytes bound
+    # it either way.
+    L = 64
+    chunks = B * H * -(-S // L)
+    flops = 2 * chunks * (L * L * N + L * L * P + 2 * L * N * P)
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
-                bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
+                bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
+
+
+def time_baseline(csrc, gen, shapes):
+    """The attention and SSD kernels built from another checkout's
+    ``csrc`` (same C interface), timed on the same inputs as
+    ``time_attention``/``time_ssd`` in turns with this checkout's:
+    baseline, kernel, kernel, baseline. Returns {name: (baseline ms, kernel
+    ms)}, each the mean of its two turns."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as SD
+
+    t0 = time.perf_counter()
+    old = build.open_library(build.build(csrc))
+    log(f"baseline build from {csrc}: {time.perf_counter() - t0:.1f} s")
+    B, S, H, hd = PER_DEVICE_BATCH * 2, SEQ, 12, 64
+    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def old_attention():
+        build.check(old.repro_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, B, S,
+            S, H, H, hd, hd ** -0.5, 0.0, 0, 0, 0, 0, stream), "baseline attention")
+
+    x, dt, A_log, Bm, Cm, _ = ssd_inputs(gen, *shapes["ssd"][0][1], torch.bfloat16)
+    Bs, Ss, Hs, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty((Bs, Ss, Hs, P), dtype=torch.float32, device="cuda")
+    hf = torch.empty((Bs, Hs, P, N), dtype=torch.float32, device="cuda")
+
+    def old_ssd():
+        build.check(old.repro_ssd_fwd(
+            x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), None, y.data_ptr(), hf.data_ptr(), 1, Bs, Ss, Hs, P,
+            N, stream), "baseline ssd")
+
+    pairs = {
+        "flash_attention": (old_attention, lambda: fa.flash_attention_kernel(
+            q, k, v, scale=hd ** -0.5)),
+        "ssd": (old_ssd, lambda: SD.ssd_kernel(x, dt, A_log, Bm, Cm)),
+    }
+    times = {}
+    for name, (base_fn, new_fn) in pairs.items():
+        b1, n1, n2, b2 = (cuda_ms(fn, 20) for fn in (base_fn, new_fn, new_fn, base_fn))
+        times[name] = ((b1 + b2) / 2, (n1 + n2) / 2)
+        log(f"{name} at the path's shape: baseline {b1:.4f} / {b2:.4f} ms, "
+            f"this checkout {n1:.4f} / {n2:.4f} ms")
+    return times
 
 
 def card_line():
@@ -758,6 +850,13 @@ def card_line():
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="root of an earlier checkout whose attention and SSD "
+                         "kernels phase 5 times beside this one's")
+    baseline = ap.parse_args().baseline
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
               file=sys.stderr)
@@ -816,6 +915,10 @@ def main():
     shapes = main_shapes()
     times["wkv6"] = time_wkv6(W, gen, shapes["wkv6"][0][1])
     times["ssd"] = time_ssd(SD, gen, shapes["ssd"][0][1])
+    if baseline:
+        csrc = pathlib.Path(baseline, "src", "repro_torch", "csrc")
+        for name, (base_ms, _) in time_baseline(csrc, gen, shapes).items():
+            times[name]["baseline_ms"] = base_ms
     rows = [
         ("shard_encode", "src/repro_torch/csrc/shard_codec.cu",
          "src/repro/kernels/shard_codec.py:46"),
@@ -841,6 +944,7 @@ def main():
         log(json.dumps({"kernel": name, "kernel_ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                         "library_ms": t.get("library_ms"),
+                        "baseline_ms": t.get("baseline_ms"),
                         "launches": launches[name]}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -66,22 +66,24 @@ def nvcc_path() -> str:
                        "from repro_torch/csrc at first use")
 
 
-def sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list:
+    return sorted(csrc.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in sorted(csrc.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile (if needed) and return the path of the shared library."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile (if needed) and return the path of the shared library built
+    from ``csrc`` (this package's sources unless another checkout's are
+    given, as a timing baseline)."""
     global last_build_s
-    out_dir = BUILD_ROOT / source_hash()
+    out_dir = BUILD_ROOT / source_hash(csrc)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         last_build_s = 0.0
@@ -93,7 +95,7 @@ def build() -> Path:
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     jobs = []
-    for src in sources():
+    for src in sources(csrc):
         obj = tmp / f"{src.stem}.o"
         log = tmp / f"{src.stem}.log"
         with open(log, "w") as fh:
@@ -126,19 +128,24 @@ def build_log() -> str:
     return "\n".join(p.read_text() for p in sorted(out_dir.glob("*.log")))
 
 
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.repro_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = open_library(build())
     return _lib
 
 

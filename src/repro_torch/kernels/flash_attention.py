@@ -7,7 +7,8 @@ softmax with fp32 running max, denominator and accumulator; q scaled before
 masks with a sliding ``window`` and ``q_offset``; GQA maps query head ``h``
 to kv head ``h // (H // K)``. Ragged sequence lengths are masked inside the
 kernel instead of asserted away. bf16 inputs run on the tensor cores
-(``mma.sync``); fp32 inputs on the CUDA cores, to hold the fp32 tolerance.
+(``wgmma``, K/V tiles through a ``cp.async`` ring); fp32 inputs on the CUDA
+cores, to hold the fp32 tolerance.
 
 ``attention_plain`` mirrors ``repro/kernels/ref.attention_ref``: dense
 softmax attention in fp32. It is the CPU path, the oracle on the card, and

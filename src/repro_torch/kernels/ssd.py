@@ -9,11 +9,14 @@ state channel n, with ``a_t = exp(-exp(A_log[h]) · dt_t)``:
 The output reads the state *after* step t's update (the opposite of WKV6).
 ``Bm`` and ``Cm`` are (B, S, N), shared by every head.
 
-The kernel (``csrc/ssd.cu``) walks the sequence one step at a time: one CTA
-per (b, h), thread ``p`` keeps ``h[p, 0:N]`` in registers, and each step's
-``B_t``/``C_t`` are staged once in shared memory, read at (b, t) — the
-per-head broadcast that the JAX wrapper materialises is never built. It
-takes any S; ``chunk`` is accepted and ignored.
+The kernel (``csrc/ssd.cu``) reads ``B``/``C`` at (b, t) — the per-head
+broadcast that the JAX wrapper materialises is never built — and takes any
+S. For bf16 x/B/C it computes the Pallas kernel's chunked form on tensor
+cores (one CTA per (b, h), chunk 64, the fp32 state in registers, bf16
+products with fp32 sums, the operands it computes split as bf16 hi + lo);
+for fp32 it walks the sequence one step at a time on the CUDA cores.
+``chunk`` is accepted and ignored: the bf16 kernel's chunk of 64 is its own
+tile.
 
 ``ssd_plain`` is ``repro/models/mamba2.ssd_chunked``: the chunked form with
 every exponent a non-positive log-decay difference, one
@@ -126,7 +129,7 @@ def ssd_kernel(x, dt, A_log, Bm, Cm, state=None, *, chunk: int = 64):
     """x: (B,S,H,P), Bm/Cm: (B,S,N) CUDA tensors of one dtype (float32 or
     bfloat16); dt: (B,S,H) and A_log: (H,), read as fp32; state: (B,H,P,N)
     or None. Returns (y (B,S,H,P) fp32, final_state (B,H,P,N) fp32)."""
-    del chunk  # a sequential kernel has no chunk
+    del chunk  # the bf16 kernel's chunk is its own tile of 64
     if not all(t.is_cuda for t in (x, dt, A_log, Bm, Cm)):
         raise ValueError("ssd: x, dt, A_log, Bm and Cm must be CUDA tensors")
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
@@ -143,7 +146,10 @@ def ssd_kernel(x, dt, A_log, Bm, Cm, state=None, *, chunk: int = 64):
                          f"{N} not in {STATE_DIMS}")
     if state is not None and (not state.is_cuda or state.shape != (B, H, P, N)):
         raise ValueError(f"ssd: state {tuple(state.shape)} on {state.device}")
-    x, Bm, Cm = (t.contiguous() for t in (x, Bm, Cm))
+    # The bf16 kernel copies 16-byte pieces: contiguous and 16-byte aligned.
+    x, Bm, Cm = (t.contiguous() if t.data_ptr() % 16 == 0 and t.is_contiguous()
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in (x, Bm, Cm))
     dt = dt.to(torch.float32).contiguous()
     A_log = A_log.to(torch.float32).contiguous()
     h0 = None if state is None else state.to(torch.float32).contiguous()

@@ -129,3 +129,120 @@ def test_kernel_refuses_cpu_tensors():
     bc = torch.zeros((1, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         SD.ssd_kernel(x, torch.ones((1, 8, 2)), torch.zeros(2), bc, bc)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 CUDA kernel's arithmetic, emulated on the CPU.
+# ---------------------------------------------------------------------------
+
+KERNEL_CHUNK = 64  # the bf16 kernel's own chunk L (csrc/ssd.cu)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_pair(t):
+    """``t`` as the sum of two bf16 values, hi + lo, as the kernel splits
+    an operand over two products (about 2^-18 relative)."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _ssd_bf16_kernel_emulation(x, dt, A_log, Bm, Cm, state=None,
+                               operand=_bf16_pair):
+    """The chunked tensor-core form of ``csrc/ssd.cu``'s bf16 kernel, step
+    for step: chunk 64, a ragged last chunk padded with zero rows (dt = 0);
+    per chunk the inclusive cumulative log-decay ``Lc`` in fp32, and four
+    bf16 products with fp32 sums. The bf16 inputs x, B and C enter as they
+    are (exact). The three operands the kernel computes enter as bf16 hi +
+    lo pairs: ``M = S ⊙ exp(min(Lc_t − Lc_j, 0)) ⊙ dt_j`` (j ≤ t) of ``y =
+    M·X``, the copy of the fp32 state in ``C·hᵀ``, and ``X ⊙ w`` of the
+    state update ``(X ⊙ w)ᵀ·B`` with ``w = exp(L_last − Lc)·dt``. The
+    state itself stays fp32. (Rounded once to bf16, these operands leave
+    ``_rec_tol``(bf16): see the test below. The kernel's exp2/log2
+    approximations, about 2^-22 relative, are not modelled.) ``operand``
+    rounds those three operands."""
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    L = KERNEL_CHUNK
+    pad = (-S) % L
+    x, Bm, Cm = (_bf16(t.to(f32)) for t in (x, Bm, Cm))
+    dt = dt.to(f32)
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt, Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                      for t in (dt, Bm, Cm))
+    lA = -torch.exp(A_log.to(f32))
+    h = (torch.zeros((Bb, H, P, N), dtype=f32) if state is None
+         else state.to(f32).clone())
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    ys = []
+    for c in range(x.shape[1] // L):
+        sl = slice(c * L, (c + 1) * L)
+        xc, dtc, Bc, Cc = x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
+        Lc = torch.cumsum(dtc * lA, dim=1)  # (B, L, H)
+        s = Cc @ Bc.transpose(1, 2)  # (B, t, j), exact in fp32
+        decay = torch.exp(torch.clamp(Lc[:, :, None, :] - Lc[:, None, :, :],
+                                      max=0.0))  # (B, t, j, H)
+        M = s[..., None] * decay * dtc[:, None, :, :]
+        M = operand(torch.where(tri[None, :, :, None], M, 0.0))
+        y = torch.einsum("btjh,bjhp->bthp", M, xc)
+        ch = torch.einsum("btn,bhpn->bthp", Cc, operand(h))
+        ys.append(y + torch.exp(Lc)[..., None] * ch)
+        Llast = Lc[:, -1, :]  # (B, H)
+        w = torch.exp(Llast[:, None, :] - Lc) * dtc  # (B, j, H)
+        h = (torch.exp(Llast)[:, :, None, None] * h
+             + torch.einsum("bjhp,bjn->bhpn", operand(xc * w[..., None]), Bc))
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+#: (B, S, H, P, N): the reduced shapes (Zamba2's reduced config has P 16,
+#: N 16), ragged last chunks, and S = 1024 at a narrow H; every (P, N) the
+#: wrapper takes is crossed with them below.
+EMULATION_SHAPES = [(2, 128, 2), (1, 100, 2), (1, 1024, 1)]
+
+
+@pytest.mark.parametrize("P", SD.HEAD_DIMS)
+@pytest.mark.parametrize("N", SD.STATE_DIMS)
+@pytest.mark.parametrize("shape", EMULATION_SHAPES,
+                         ids=[f"B{b}-S{s}-H{h}" for b, s, h in EMULATION_SHAPES])
+def test_bf16_kernel_arithmetic_within_rec_tol(shape, P, N):
+    """The kernel's arithmetic (bf16 hi + lo operands for ``M``, the state
+    copy and ``X ⊙ w``) holds ``_rec_tol``(bf16) against ``ssd_plain`` and the Pallas
+    kernel in interpret mode, on bf16 x/B/C draws as
+    ``chip_smoke.ssd_inputs`` makes them (dt = softplus(normal) + 0.01,
+    A_log in [-1, 1.5))."""
+    B, S, H = shape
+    x, dt, A_log, Bm, Cm, st = _inputs((B, S, H, P, N), seed=S + P + N)
+    tx, tB, tC = (_torch(a, "bfloat16") for a in (x, Bm, Cm))
+    args = (tx, _torch(dt), _torch(A_log), tB, tC, _torch(st))
+    y, hf = _ssd_bf16_kernel_emulation(*args)
+    py, ph = SD.ssd_plain(*args, chunk=64)
+    tol = _rec_tol("bfloat16")
+    torch.testing.assert_close(y, py, **tol)
+    torch.testing.assert_close(hf, ph, **tol)
+    if S % KERNEL_CHUNK == 0:  # the Pallas kernel asserts S % chunk == 0
+        jy, jh = jax_ssd_kernel(_jax(x, "bfloat16"), _jax(dt), _jax(A_log),
+                                _jax(Bm, "bfloat16"), _jax(Cm, "bfloat16"),
+                                state=_jax(st), chunk=KERNEL_CHUNK)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), **tol)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(jh), **tol)
+
+
+def test_single_bf16_operands_would_leave_rec_tol():
+    """Why the kernel splits its computed operands: rounded once to bf16,
+    M, the state copy and ``X ⊙ w`` leave ``_rec_tol``(bf16) against
+    ``ssd_plain`` on an ordinary draw, where the hi + lo pairs hold it."""
+    x, dt, A_log, Bm, Cm, st = _inputs((2, 128, 2, 64, 8), seed=200)
+    args = (_torch(x, "bfloat16"), _torch(dt), _torch(A_log),
+            _torch(Bm, "bfloat16"), _torch(Cm, "bfloat16"), _torch(st))
+    py, _ = SD.ssd_plain(*args, chunk=64)
+    tol = _rec_tol("bfloat16")
+
+    def excess(y):  # > 0 where |y - plain| leaves atol + rtol·|plain|
+        return float(((y - py).abs() - tol["atol"] - tol["rtol"] * py.abs()).max())
+
+    assert excess(_ssd_bf16_kernel_emulation(*args)[0]) <= 0
+    assert excess(_ssd_bf16_kernel_emulation(*args, operand=_bf16)[0]) > 0
