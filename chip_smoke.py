@@ -10,26 +10,31 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    spill lines;
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (read from the configs, at both global
-   batches, 8 and 12) and over the JAX kernel sweeps;
+   batches, 8 and 12) and over the JAX kernel sweeps; the many-leaf encode
+   (one launch per state) bit for bit against the per-leaf plain encode;
 3. the main paths, one per trained family, each at full width and full
    depth under ``ElasticTrainer`` with int8 state replication — 3 steps on
    2 logical devices, a scale-out, 2 steps on 3, a scale-in, 2 steps on 2 —
    with the launch counters zeroed just before each path, read just after
    it and held to the exact counts its config gives: GPT-2 (codec, flash
    attention), RWKV-6 1.6B (codec, WKV6) and Zamba2 1.2B (codec, SSD, flash
-   attention); one profiled step each;
+   attention); each path's full state encoded by the many-leaf kernel bit
+   for bit as the per-leaf plain encode; one profiled step each;
 4. a reference check on a small input: each reduced model's loss and
    gradient norm through the kernels on the card against the plain
    versions on the CPU;
 5. times: each kernel, its plain version and (attention) the library call,
    beside the least time the card could take (H100 SXM data sheet: 3.35 TB/s,
-   989 TFLOP/s bf16, 67 TFLOP/s fp32).
+   989 TFLOP/s bf16, 67 TFLOP/s fp32); for the codec over GPT-2's state
+   also the device time (the kernels' own durations in a profiler trace)
+   beside the CUDA-event window, which holds the host's dispatch too.
 
     python3 chip_smoke.py --baseline DIR
 
-adds to phase 5 the times of the attention and SSD kernels built from the
-checkout at DIR (an earlier commit, unpacked), on the same inputs, in turns
-with this checkout's (baseline, kernel, kernel, baseline).
+adds to phase 5 the times of the attention, SSD and WKV6 kernels and the
+per-leaf encode built from the checkout at DIR (an earlier commit,
+unpacked), on the same inputs, in turns with this checkout's (baseline,
+kernel, kernel, baseline).
 
 It prints one JSON line per kernel and per path, the ``kernels`` line, the
 card's name and power limit from ``nvidia-smi``, and last the line
@@ -192,7 +197,42 @@ def check_codec(codec, gen):
     torch.cuda.synchronize()
     log("codec: encode and decode bit-identical to plain on "
         "(50257, 768), (768,), (2309,), (256,)")
+    leaves = codec_many_leaves(gen)
+    check_encode_many(codec, leaves)
+    log(f"codec: many-leaf encode bit-identical to per-leaf plain over "
+        f"{len(leaves)} leaves {[tuple(x.shape) for x in leaves]}")
     return err
+
+
+def codec_many_leaves(gen):
+    """Leaves for the many-leaf encode: an empty leaf, n < 256, ragged
+    tails, whole blocks, 2-D leaves, and views that start off a 16-byte
+    boundary (the kernel's element-wise path)."""
+    base = torch.randn(5000, generator=gen, device="cuda") * 2.0
+    return [torch.randn((50257 // 7, 768), generator=gen, device="cuda"),
+            base[:0], base[:100], base[1:1001], base[3:3 + 256 * 2],
+            torch.randn((3, 256), generator=gen, device="cuda") * 1e-3,
+            torch.zeros(300, device="cuda"), base[:256 * 4 + 7],
+            torch.randn((768,), generator=gen, device="cuda")]
+
+
+def check_encode_many(codec, leaves):
+    """``shard_encode_many_kernel`` over ``leaves`` against
+    ``shard_encode_plain`` leaf by leaf: codes and scales bit for bit, and
+    each leaf's rows where ``firsts`` puts them."""
+    codes, scales, firsts = codec.shard_encode_many_kernel(leaves)
+    if firsts != codec.block_firsts(x.numel() for x in leaves):
+        raise AssertionError(f"shard_encode_many: block prefix {firsts[:8]}...")
+    if codes.shape != (firsts[-1], 256) or scales.shape != (firsts[-1],):
+        raise AssertionError(f"shard_encode_many: {tuple(codes.shape)}, "
+                             f"{tuple(scales.shape)} for {firsts[-1]} blocks")
+    for i, x in enumerate(leaves):
+        pc, ps = codec.shard_encode_plain(x)
+        lo, hi = firsts[i], firsts[i + 1]
+        if not (torch.equal(codes[lo:hi], pc) and torch.equal(scales[lo:hi], ps)):
+            raise AssertionError(f"shard_encode_many differs from plain at leaf "
+                                 f"{i} {tuple(x.shape)}")
+    torch.cuda.synchronize()
 
 
 def main_shapes():
@@ -432,15 +472,16 @@ def expected_launches(cfg, n_coded_leaves):
     layer's kernel once in the forward and once more in its remat
     recompute (the backwards differentiate the plain versions and launch
     nothing); Zamba2's shared attention block, applied outside the remat,
-    once per application; the codec once per fp32 leaf in the one
-    scale-out."""
+    once per application; in the one scale-out, the encode once for all
+    fp32 leaves together and the decode once per fp32 leaf."""
     from repro_torch.kernels import ops
     from repro_torch.models import zamba2
 
     steps = sum(STEPS)
     per_layer = steps * cfg.n_layers * (2 if cfg.remat else 1)
     n = dict.fromkeys(ops.launches, 0)
-    n["shard_encode"] = n["shard_decode"] = n_coded_leaves
+    n["shard_encode"] = 1 if n_coded_leaves else 0
+    n["shard_decode"] = n_coded_leaves
     if cfg.family == "dense":
         n["flash_attention"] = per_layer
     elif cfg.family == "ssm":
@@ -461,6 +502,7 @@ def main_path(ops, name):
     from repro_torch.core.sharding_alg import NeighborLink
     from repro_torch.data import ShardedLoader, TokenStream
     from repro_torch.elastic import ElasticTrainer
+    from repro_torch.kernels import shard_codec as codec_module
     from repro_torch.models import build_model
 
     cfg = get_config(name)
@@ -530,6 +572,11 @@ def main_path(ops, name):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+    check_encode_many(codec_module, [leaf for leaf in T.leaves(trainer.state)
+                                      if leaf.dtype == torch.float32
+                                      and leaf.numel()])
+    log(f"{name}: the many-leaf encode of the full state is bit-identical to "
+        f"the per-leaf plain encode")
     codec = ev_out.plan_summary["codec"]
     summary = {
         "path": name,
@@ -699,33 +746,70 @@ def reference_check(name):
 # ---------------------------------------------------------------------------
 
 
+def device_ms(fn, name, tries=3):
+    """Device time of one call of ``fn``: the summed durations of the
+    kernels whose name holds ``name``, in a profiler trace read from the
+    raw events as ``device_times`` reads them (after a warm-up call). Now
+    and then a trace lacks the kernel (seen for the one-launch encode, in
+    this script after the recurrent paths' large traces and once in a short
+    script); then it profiles again, up to ``tries`` traces, and returns
+    None if none holds the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows, _ = device_times(prof.profiler.kineto_results.events(), ())
+        hits = [ms for ms, _, key in rows if name in key]
+        if hits:
+            return sum(hits)
+    return None
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def time_codec(codec, state):
     """Encode and decode of every fp32 leaf of the full state, as one
-    scale-out runs them."""
+    scale-out runs them: the encode in one launch, the decode leaf by leaf.
+    Each as a CUDA-event window and as device time."""
     from repro_torch import tree as T
 
     leaves = [leaf for leaf in T.leaves(state) if leaf.dtype == torch.float32]
     n = sum(leaf.numel() for leaf in leaves)
     nb = sum(-(-leaf.numel() // 256) for leaf in leaves)
-    enc = [codec.shard_encode_kernel(leaf) for leaf in leaves]
-    enc_plain = [codec.shard_encode_plain(leaf) for leaf in leaves]
-    for (kc, ks), (pc, ps) in zip(enc, enc_plain):
-        if not (torch.equal(kc, pc) and torch.equal(ks, ps)):
-            raise AssertionError("shard_encode differs from plain on the state")
-    del enc_plain
+    codes, scales, firsts = codec.shard_encode_many_kernel(leaves)
+    enc = [(codes[a:b], scales[a:b]) for a, b in zip(firsts, firsts[1:])]
     numels = [leaf.numel() for leaf in leaves]
-    e_ms = cuda_ms(lambda: [codec.shard_encode_kernel(x) for x in leaves], 5)
+
+    def encode_many():
+        codec.shard_encode_many_kernel(leaves)
+
+    def decode_each():
+        for (c, sc), m in zip(enc, numels):
+            codec.shard_decode_kernel(c, sc, m)
+
+    e_ms = cuda_ms(encode_many, 5)
+    e_dev = device_ms(encode_many, "shard_encode")
     e_plain = cuda_ms(lambda: [codec.shard_encode_plain(x) for x in leaves], 2, 1)
-    d_ms = cuda_ms(lambda: [codec.shard_decode_kernel(c, s, m)
-                            for (c, s), m in zip(enc, numels)], 5)
-    d_plain = cuda_ms(lambda: [codec.shard_decode_plain(c, s, m)
-                               for (c, s), m in zip(enc, numels)], 2, 1)
+    d_ms = cuda_ms(decode_each, 5)
+    d_dev = device_ms(decode_each, "shard_decode")
+    d_plain = cuda_ms(lambda: [codec.shard_decode_plain(c, sc, m)
+                               for (c, sc), m in zip(enc, numels)], 2, 1)
     coded = nb * 256 + 4 * nb  # codes + scales
     enc_bound = bound(4 * n + coded, 6 * n, PEAK_FP32_FLOPS)
     dec_bound = bound(coded + 4 * n, n, PEAK_FP32_FLOPS)
-    log(f"codec over the full state: {len(leaves)} fp32 leaves, {n} elements")
-    return (dict(ms=e_ms, plain_ms=e_plain, bound=enc_bound, elements=n),
-            dict(ms=d_ms, plain_ms=d_plain, bound=dec_bound, elements=n))
+    log(f"codec over the full state: {len(leaves)} fp32 leaves, {n} elements; "
+        f"encode in one launch {e_ms:.4f} ms (device {_ms(e_dev)}); decode "
+        f"leaf by leaf {d_ms:.4f} ms (device {_ms(d_dev)})")
+    return (dict(ms=e_ms, device_ms=e_dev, plain_ms=e_plain,
+                 bound=enc_bound, elements=n),
+            dict(ms=d_ms, device_ms=d_dev, plain_ms=d_plain, bound=dec_bound,
+                 elements=n))
 
 
 def time_attention(fa, MaskSpec, gen):
@@ -787,19 +871,72 @@ def time_ssd(SD, gen, shape):
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
-def time_baseline(csrc, gen, shapes):
-    """The attention and SSD kernels built from another checkout's
-    ``csrc`` (same C interface), timed on the same inputs as
-    ``time_attention``/``time_ssd`` in turns with this checkout's:
-    baseline, kernel, kernel, baseline. Returns {name: (baseline ms, kernel
-    ms)}, each the mean of its two turns."""
+def open_baseline(csrc):
+    """The kernel library built from another checkout's ``csrc`` (same C
+    interface), with the entry points ``time_baseline*`` call."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    old = build.open_library(build.build(csrc), names=(
+        "repro_flash_attention_fwd", "repro_ssd_fwd", "repro_wkv6_fwd",
+        "repro_shard_encode"))
+    log(f"baseline build from {csrc}: {time.perf_counter() - t0:.1f} s")
+    return old
+
+
+def _in_turns(name, base_fn, new_fn):
+    """CUDA-event times of baseline, kernel, kernel, baseline; the mean of
+    each pair."""
+    b1, n1, n2, b2 = (cuda_ms(fn, 20) for fn in (base_fn, new_fn, new_fn, base_fn))
+    log(f"{name} at the path's shape: baseline {b1:.4f} / {b2:.4f} ms, "
+        f"this checkout {n1:.4f} / {n2:.4f} ms")
+    return dict(baseline_ms=(b1 + b2) / 2, ms=(n1 + n2) / 2)
+
+
+def time_baseline_codec(old, leaves):
+    """The baseline's per-leaf encode against this checkout's one launch,
+    over the fp32 ``leaves`` of GPT-2's state, in turns: the baseline leaf by
+    leaf with that checkout's wrapper's host work (flatten, two outputs
+    allocated, the launch on the leaf's stream). Both as CUDA-event windows
+    and as device time."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import shard_codec as codec
+
+    def old_encode():  # that checkout's shard_encode_kernel, leaf by leaf
+        for leaf in leaves:
+            xf = leaf.contiguous().reshape(-1)
+            n = xf.numel()
+            nb = -(-n // 256)
+            c = torch.empty((nb, 256), dtype=torch.int8, device=leaf.device)
+            sc = torch.empty((nb,), dtype=torch.float32, device=leaf.device)
+            build.check(old.repro_shard_encode(xf.data_ptr(), n, c.data_ptr(),
+                                               sc.data_ptr(), nb,
+                                               build.stream_of(leaf)),
+                        "baseline shard_encode")
+
+    def new_encode():
+        codec.shard_encode_many_kernel(leaves)
+
+    t = _in_turns("shard_encode", old_encode, new_encode)
+    bd1, nd1, nd2, bd2 = (device_ms(fn, "shard_encode") for fn in (
+        old_encode, new_encode, new_encode, old_encode))
+    log(f"shard_encode device time over {len(leaves)} leaves: baseline "
+        f"{_ms(bd1)} / {_ms(bd2)}, this checkout {_ms(nd1)} / {_ms(nd2)}")
+    if None not in (bd1, bd2, nd1, nd2):
+        t.update(baseline_device_ms=(bd1 + bd2) / 2, device_ms=(nd1 + nd2) / 2)
+    return t
+
+
+def time_baseline(old, gen, shapes):
+    """The baseline's attention, SSD and WKV6 kernels, timed on the same
+    inputs as ``time_attention``/``time_ssd``/``time_wkv6`` in turns with
+    this checkout's: baseline, kernel, kernel, baseline. Returns {name:
+    {"baseline_ms", "ms"}}, each the mean of its two turns."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd as SD
+    from repro_torch.kernels import wkv6 as W
 
-    t0 = time.perf_counter()
-    old = build.open_library(build.build(csrc))
-    log(f"baseline build from {csrc}: {time.perf_counter() - t0:.1f} s")
     B, S, H, hd = PER_DEVICE_BATCH * 2, SEQ, 12, 64
     q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
@@ -823,18 +960,24 @@ def time_baseline(csrc, gen, shapes):
             Cm.data_ptr(), None, y.data_ptr(), hf.data_ptr(), 1, Bs, Ss, Hs, P,
             N, stream), "baseline ssd")
 
-    pairs = {
-        "flash_attention": (old_attention, lambda: fa.flash_attention_kernel(
-            q, k, v, scale=hd ** -0.5)),
-        "ssd": (old_ssd, lambda: SD.ssd_kernel(x, dt, A_log, Bm, Cm)),
+    wargs = wkv6_inputs(gen, *shapes["wkv6"][0][1], torch.float32)
+    Bw, Sw, Hw, hw = wargs[0].shape
+    wo = torch.empty((Bw, Sw, Hw, hw), dtype=torch.float32, device="cuda")
+    ws = torch.empty((Bw, Hw, hw, hw), dtype=torch.float32, device="cuda")
+
+    def old_wkv6():
+        r, k_, v_, lw, u, _ = wargs
+        build.check(old.repro_wkv6_fwd(
+            r.data_ptr(), k_.data_ptr(), v_.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), None, wo.data_ptr(), ws.data_ptr(), 0, Bw, Sw, Hw,
+            hw, stream), "baseline wkv6")
+
+    return {
+        "flash_attention": _in_turns("flash_attention", old_attention, lambda: (
+            fa.flash_attention_kernel(q, k, v, scale=hd ** -0.5))),
+        "ssd": _in_turns("ssd", old_ssd, lambda: SD.ssd_kernel(x, dt, A_log, Bm, Cm)),
+        "wkv6": _in_turns("wkv6", old_wkv6, lambda: W.wkv6_kernel(*wargs)),
     }
-    times = {}
-    for name, (base_fn, new_fn) in pairs.items():
-        b1, n1, n2, b2 = (cuda_ms(fn, 20) for fn in (base_fn, new_fn, new_fn, base_fn))
-        times[name] = ((b1 + b2) / 2, (n1 + n2) / 2)
-        log(f"{name} at the path's shape: baseline {b1:.4f} / {b2:.4f} ms, "
-            f"this checkout {n1:.4f} / {n2:.4f} ms")
-    return times
 
 
 def card_line():
@@ -854,13 +997,15 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
-                    help="root of an earlier checkout whose attention and SSD "
-                         "kernels phase 5 times beside this one's")
+                    help="root of an earlier checkout whose attention, SSD "
+                         "and WKV6 kernels and per-leaf encode phase 5 times "
+                         "beside this one's")
     baseline = ap.parse_args().baseline
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
               file=sys.stderr)
         return 1
+    from repro_torch import tree as T
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -881,6 +1026,8 @@ def main():
     for line in build.build_log().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip().removeprefix("ptxas info    : "))
+    old = (open_baseline(pathlib.Path(baseline, "src", "repro_torch", "csrc"))
+           if baseline else None)
 
     # Phase 2: kernels against plain versions.
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -890,15 +1037,26 @@ def main():
     errs["wkv6"] = check_wkv6(W, gen)
     errs["ssd"] = check_ssd(SD, gen)
 
-    # Phase 3: the main paths, one family at a time.
+    # Phase 3: the main paths, one family at a time. GPT-2's state is the
+    # codec's timing input (phase 5), timed while it is on the card.
     launches = {name: 0 for name in ops.launches}
-    gpt2 = None
+    times = {}
     for name in PATHS:
         trainer, path_launches = main_path(ops, name)
         for k, n in path_launches.items():
             launches[k] += n
         if name == "gpt2":
-            gpt2 = trainer  # its state is the codec's timing input
+            times["shard_encode"], times["shard_decode"] = time_codec(
+                codec, trainer.state)
+            if old is not None:
+                leaves = [leaf for leaf in T.leaves(trainer.state)
+                          if leaf.dtype == torch.float32]
+                base = time_baseline_codec(old, leaves)
+                times["shard_encode"]["baseline_ms"] = base["baseline_ms"]
+                if "baseline_device_ms" in base:
+                    times["shard_encode"]["baseline_device_ms"] = \
+                        base["baseline_device_ms"]
+                del leaves
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
@@ -908,17 +1066,14 @@ def main():
     for name in PATHS:
         reference_check(name)
 
-    # Phase 5: times.
-    times = {}
-    times["shard_encode"], times["shard_decode"] = time_codec(codec, gpt2.state)
+    # Phase 5: times (the codec's were taken after the GPT-2 path).
     times["flash_attention"] = time_attention(fa, MaskSpec, gen)
     shapes = main_shapes()
     times["wkv6"] = time_wkv6(W, gen, shapes["wkv6"][0][1])
     times["ssd"] = time_ssd(SD, gen, shapes["ssd"][0][1])
-    if baseline:
-        csrc = pathlib.Path(baseline, "src", "repro_torch", "csrc")
-        for name, (base_ms, _) in time_baseline(csrc, gen, shapes).items():
-            times[name]["baseline_ms"] = base_ms
+    if old is not None:
+        for name, t in time_baseline(old, gen, shapes).items():
+            times[name]["baseline_ms"] = t["baseline_ms"]
     rows = [
         ("shard_encode", "src/repro_torch/csrc/shard_codec.cu",
          "src/repro/kernels/shard_codec.py:46"),
@@ -945,6 +1100,8 @@ def main():
                         "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                         "library_ms": t.get("library_ms"),
                         "baseline_ms": t.get("baseline_ms"),
+                        **{key: t[key] for key in (
+                            "device_ms", "baseline_device_ms") if key in t},
                         "launches": launches[name]}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -13,7 +13,8 @@ byte streams equal the JAX package's for the same state. The 0-d
 ``opt/step`` int32 leaf takes 4 bytes like any other.
 
 On the card the int8 codec runs the shard-codec kernels
-(``kernels.ops.shard_encode``/``shard_decode``). The JAX package's
+(``kernels.ops.shard_encode_many``, one launch per encoded state, and
+``shard_decode``, one per leaf). The JAX package's
 ``verify_kernel`` cross-check against the reference on every encode has no
 counterpart here: the kernels are held to their plain versions by the tests
 and by ``chip_smoke.py``, never on the main path.
@@ -158,19 +159,28 @@ def encode_state(tree, codec: str = wire_codec.CODEC_INT8):
 
     Returns ``(leaves, manifest, total_wire_bytes)``. fp32 leaves are
     int8-block-quantized by the shard-codec kernel (one fp32 scale per
-    ``Q_BLOCK`` elements); other dtypes ship raw, as a copy. Any non-``none``
-    codec quantizes the same way (see the JAX function for why)."""
+    ``Q_BLOCK`` elements), all of them in one launch; each int8
+    ``EncodedLeaf`` holds views of its rows of the shared codes and scales
+    buffers. Other dtypes ship raw, as a copy. Any non-``none`` codec
+    quantizes the same way (see the JAX function for why)."""
     manifest = build_manifest(tree)
+    leaves = T.leaves(tree)
+    coded = [codec != wire_codec.CODEC_NONE and leaf.dtype == torch.float32
+             and leaf.numel() > 0 for leaf in leaves]
+    if any(coded):
+        codes, scales, firsts = kernel_ops.shard_encode_many(
+            [leaf for leaf, c in zip(leaves, coded) if c])
     out: List[EncodedLeaf] = []
     total_wire = 0
-    for entry, leaf in zip(manifest.entries, T.leaves(tree)):
-        if (codec != wire_codec.CODEC_NONE and leaf.dtype == torch.float32
-                and leaf.numel()):
-            codes, scales = kernel_ops.shard_encode(leaf)
-            wire = int(compressed_bytes(codes, scales))
-            out.append(EncodedLeaf("int8", entry.nbytes, wire, codes=codes,
-                                   scales=scales,
-                                   meta=(entry.shape, leaf.dtype)))
+    j = 0
+    for entry, leaf, c in zip(manifest.entries, leaves, coded):
+        if c:
+            lo, hi = firsts[j], firsts[j + 1]
+            j += 1
+            lc, ls = codes[lo:hi], scales[lo:hi]
+            wire = int(compressed_bytes(lc, ls))
+            out.append(EncodedLeaf("int8", entry.nbytes, wire, codes=lc,
+                                   scales=ls, meta=(entry.shape, leaf.dtype)))
         else:
             wire = entry.nbytes
             out.append(EncodedLeaf("raw", entry.nbytes, wire, raw=leaf.clone()))

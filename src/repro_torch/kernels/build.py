@@ -36,6 +36,8 @@ _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_f
 #: the stream go as ``c_void_p`` so that ctypes does not cut them to 32 bits.
 SIGNATURES = {
     "repro_shard_encode": [_P, _I64, _P, _P, _I64, _P],
+    # table, n_leaves, nb, codes, scales, stream.
+    "repro_shard_encode_many": [_P, _I32, _I64, _P, _P, _P],
     "repro_shard_decode": [_P, _P, _I64, _P, _P],
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                   _I32, _I32, _I32, _F32, _F32, _I32, _I32,
@@ -128,12 +130,14 @@ def build_log() -> str:
     return "\n".join(p.read_text() for p in sorted(out_dir.glob("*.log")))
 
 
-def open_library(path: Path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its C entry points."""
+def open_library(path: Path, names=None) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points: all of
+    ``SIGNATURES``, or only ``names`` (an earlier checkout's library, built
+    as a timing baseline, lacks the entry points added since)."""
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
+    for name in SIGNATURES if names is None else names:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

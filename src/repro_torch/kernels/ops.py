@@ -184,12 +184,15 @@ def ssd(x, dt, A_log, Bm, Cm, state=None, *, chunk=64):
 # ---------------------------------------------------------------------------
 
 
-def shard_encode(x: torch.Tensor):
-    """Flat fp32 leaf → (codes int8 (nb, 256), scales fp32 (nb,))."""
-    if _on_card(x, "shard_encode"):
-        launches["shard_encode"] += 1
-        return _codec.shard_encode_kernel(x)
-    return _codec.shard_encode_plain(x)
+def shard_encode_many(leaves):
+    """fp32 leaves on one device → (codes int8 (Σnb, 256), scales fp32
+    (Σnb,), firsts): leaf ``i`` is rows ``firsts[i]:firsts[i + 1]``, equal
+    to its one-leaf encode. One kernel launch for all leaves on the card."""
+    if leaves and _on_card(leaves[0], "shard_encode_many"):
+        if any(x.numel() for x in leaves):
+            launches["shard_encode"] += 1
+        return _codec.shard_encode_many_kernel(leaves)
+    return _codec.shard_encode_many_plain(leaves)
 
 
 def shard_decode(codes: torch.Tensor, scales: torch.Tensor,

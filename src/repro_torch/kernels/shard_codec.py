@@ -11,12 +11,17 @@ per-block scales ``(nb,)``, ``nb = ceil(n / 256)``; the ragged tail is
 encoded as zeros. Decode: the inverse, ``codes * scales[:, None]``, as
 ``(nb, 256)`` or as the first ``numel`` values.
 
-Callers go through ``kernels.ops.shard_encode``/``shard_decode``, which
-count launches and pick the plain version only for CPU tensors.
+Many-leaf encode: a list of fp32 leaves → one codes buffer ``(Σnb, 256)``,
+one scales buffer ``(Σnb,)`` and the block prefix ``firsts`` (leaf ``i``'s
+blocks are rows ``firsts[i]:firsts[i + 1]``), each leaf's rows equal to its
+one-leaf encode. The kernel encodes them all in one launch.
+
+Callers go through ``kernels.ops.shard_encode_many``/``shard_decode``,
+which count launches and pick the plain version only for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +44,27 @@ def shard_encode_plain(x: torch.Tensor):
     scale = torch.clamp(torch.amax(torch.abs(xb), dim=1), min=1e-12) * (1.0 / 127.0)
     codes = torch.clamp(torch.round(xb / scale[:, None]), -127, 127).to(torch.int8)
     return codes, scale
+
+
+def block_firsts(numels: Sequence[int]) -> List[int]:
+    """Prefix of the leaves' block counts: leaf ``i`` codes as rows
+    ``firsts[i]:firsts[i + 1]`` of a many-leaf encode."""
+    firsts = [0]
+    for n in numels:
+        firsts.append(firsts[-1] + -(-int(n) // Q_BLOCK))
+    return firsts
+
+
+def shard_encode_many_plain(leaves: Sequence[torch.Tensor]):
+    """The many-leaf encode as ``shard_encode_plain`` leaf by leaf:
+    ``(codes (Σnb, 256), scales (Σnb,), firsts)``."""
+    parts = [shard_encode_plain(x) for x in leaves]
+    device = leaves[0].device if leaves else torch.device("cpu")
+    codes = (torch.cat([c for c, _ in parts]) if parts else
+             torch.empty((0, Q_BLOCK), dtype=torch.int8, device=device))
+    scales = (torch.cat([s for _, s in parts]) if parts else
+              torch.empty((0,), dtype=torch.float32, device=device))
+    return codes, scales, block_firsts(x.numel() for x in leaves)
 
 
 def shard_decode_plain(codes: torch.Tensor, scales: torch.Tensor,
@@ -74,6 +100,36 @@ def shard_encode_kernel(x: torch.Tensor):
                                            build.stream_of(x)),
                     "shard_encode")
     return codes, scales
+
+
+def shard_encode_many_kernel(leaves: Sequence[torch.Tensor]):
+    """CUDA encode of float32 tensors of any shapes (each read flat) on one
+    device, in one launch: ``(codes (Σnb, 256), scales (Σnb,), firsts)`` as
+    ``shard_encode_many_plain``. The launch reads a device table of (data
+    pointer, numel, first block) per non-empty leaf, copied from pinned host
+    memory without a synchronisation."""
+    if not leaves:
+        raise ValueError("shard_encode_many: no leaves")
+    for x in leaves:
+        _require_cuda(x, torch.float32, "shard_encode_many")
+    device = leaves[0].device
+    if any(x.device != device for x in leaves):
+        raise ValueError("shard_encode_many: leaves on more than one device")
+    flats = [x.contiguous().reshape(-1) for x in leaves]
+    firsts = block_firsts(xf.numel() for xf in flats)
+    nb = firsts[-1]
+    codes = torch.empty((nb, Q_BLOCK), dtype=torch.int8, device=device)
+    scales = torch.empty((nb,), dtype=torch.float32, device=device)
+    rows = [(xf.data_ptr(), xf.numel(), first)
+            for xf, first in zip(flats, firsts) if xf.numel()]
+    if rows:
+        table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+            device, non_blocking=True)
+        lib = build.load()
+        build.check(lib.repro_shard_encode_many(
+            table.data_ptr(), len(rows), nb, codes.data_ptr(),
+            scales.data_ptr(), build.stream_of(leaves[0])), "shard_encode_many")
+    return codes, scales, firsts
 
 
 def shard_decode_kernel(codes: torch.Tensor, scales: torch.Tensor,

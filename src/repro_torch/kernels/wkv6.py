@@ -9,9 +9,13 @@ Port of ``repro/kernels/wkv6.py``. Per (batch, head), with the state's axes
 The output reads the state *before* step t's update, plus the ``u`` bonus.
 
 The kernel (``csrc/wkv6.cu``) walks the sequence one step at a time, as the
-official RWKV-6 CUDA kernel does: one CTA per (b, h), thread ``d`` keeps the
-state column ``S[:, d]`` in registers. It takes any S; ``chunk`` is accepted
-and ignored, so the contract equals the Pallas kernel's.
+official RWKV-6 CUDA kernel does, with the per-step latency taken out: one
+CTA per (b, h), each thread holding a tile of the state in registers (8 key
+rows by 4 value columns at hd 64; partial outputs meet by warp shuffles);
+the ``u`` bonus hoisted to one scalar per step; r, k, v and lw staged 32
+steps at a time in shared memory by ``cp.async``, double buffered, with
+``exp(lw)`` taken once per element there. It takes any S; ``chunk`` is
+accepted and ignored, so the contract equals the Pallas kernel's.
 
 ``wkv6_plain`` is ``repro/models/rwkv6.wkv6_chunked``: the numerically
 stable chunked form (every exponent is a non-positive log-decay difference),
@@ -128,11 +132,16 @@ def wkv6_ref(r, k, v, lw, u, state=None):
 # ---------------------------------------------------------------------------
 
 
+def _aligned(t):
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def wkv6_kernel(r, k, v, lw, u, state=None, *, chunk: int = 64):
     """r,k,v: (B,S,H,hd) CUDA tensors of one dtype (float32 or bfloat16);
     lw: (B,S,H,hd) and u: (H,hd), read as fp32; state: (B,H,hd,hd) or None.
     Returns (out (B,S,H,hd) fp32, final_state (B,H,hd,hd) fp32)."""
-    del chunk  # a sequential kernel has no chunk
+    del chunk  # the sequential kernel stages its own 32-step chunks
     if not all(t.is_cuda for t in (r, k, v, lw, u)):
         raise ValueError("wkv6: r, k, v, lw and u must be CUDA tensors")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
@@ -147,8 +156,9 @@ def wkv6_kernel(r, k, v, lw, u, state=None, *, chunk: int = 64):
         raise ValueError(f"wkv6: head_dim {hd} not in {HEAD_DIMS}")
     if state is not None and (not state.is_cuda or state.shape != (B, H, hd, hd)):
         raise ValueError(f"wkv6: state {tuple(state.shape)} on {state.device}")
-    r, k, v = (t.contiguous() for t in (r, k, v))
-    lw = lw.to(torch.float32).contiguous()
+    # The kernel moves 16 bytes at a time: copy a view that starts off a
+    # 16-byte boundary.
+    r, k, v, lw = (_aligned(t) for t in (r, k, v, lw.to(torch.float32)))
     u = u.to(torch.float32).contiguous()
     s0 = None if state is None else state.to(torch.float32).contiguous()
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)

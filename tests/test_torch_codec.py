@@ -3,7 +3,8 @@
 The port's plain encode/decode (the CPU path of ``kernels.ops``) must be
 bit-identical to ``optim.compression.int8_quantize``/``int8_dequantize`` and
 to the Pallas ``shard_encode_kernel``/``shard_decode_kernel`` (interpret
-mode), for whole and ragged sizes.
+mode), for whole and ragged sizes; the many-leaf encode leaf by leaf as
+well.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +45,7 @@ def test_plain_codec_bit_identical_to_pallas_kernels(nb):
 def test_plain_codec_bit_identical_to_int8_quantize(n):
     x = _x(n, n)
     jc, js, meta = jax_comp.int8_quantize(jnp.asarray(x))
-    tc, ts = ops.shard_encode(torch.from_numpy(x))
+    tc, ts, _ = ops.shard_encode_many([torch.from_numpy(x)])
     assert np.array_equal(tc.numpy(), np.asarray(jc))
     assert np.array_equal(ts.numpy(), np.asarray(js))
     jd = np.asarray(jax_comp.int8_dequantize(jc, js, meta))
@@ -81,7 +82,7 @@ def test_degenerate_blocks_bit_identical():
 
 def test_cpu_wrappers_take_plain_path_without_counting():
     ops.reset_launches()
-    c, s = ops.shard_encode(torch.ones(300))
+    c, s, _ = ops.shard_encode_many([torch.ones(300)])
     ops.shard_decode(c, s, 300)
     assert c.shape == (2, 256) and s.shape == (2,)
     assert ops.launches == {"shard_encode": 0, "shard_decode": 0,
@@ -94,3 +95,55 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         codec.shard_decode_kernel(torch.zeros((1, 256), dtype=torch.int8),
                                   torch.ones(1))
+
+
+#: Leaf sizes of a many-leaf encode: an empty leaf, n < 256, a ragged tail,
+#: 256·k elements, one element.
+MANY_LEAF_CASES = {
+    "mixed": [1000, 0, 100, 256 * 3, 257, 1, 256 * 7],
+    "empty only": [0],
+    "one whole leaf": [256 * 4],
+    "ragged only": [255, 1, 511],
+    "empty first and last": [0, 300, 0],
+}
+
+
+@pytest.mark.parametrize("sizes", list(MANY_LEAF_CASES.values()),
+                         ids=list(MANY_LEAF_CASES))
+def test_many_leaf_plain_encode_bit_identical_to_per_leaf_and_int8_quantize(sizes):
+    leaves = [torch.from_numpy(_x(n, 100 + i)) for i, n in enumerate(sizes)]
+    codes, scales, firsts = codec.shard_encode_many_plain(leaves)
+    assert firsts == codec.block_firsts(sizes)
+    assert firsts == [0] + list(np.cumsum([-(-n // 256) for n in sizes]))
+    assert codes.shape == (firsts[-1], 256) and codes.dtype == torch.int8
+    assert scales.shape == (firsts[-1],) and scales.dtype == torch.float32
+    for i, x in enumerate(leaves):
+        lc, ls = codes[firsts[i]:firsts[i + 1]], scales[firsts[i]:firsts[i + 1]]
+        pc, ps = codec.shard_encode_plain(x)
+        assert torch.equal(lc, pc) and torch.equal(ls, ps)
+        if x.numel():
+            jc, js, _ = jax_comp.int8_quantize(jnp.asarray(x.numpy()))
+            assert np.array_equal(lc.numpy(), np.asarray(jc))
+            assert np.array_equal(ls.numpy(), np.asarray(js))
+
+
+def test_many_leaf_encode_takes_any_shapes_and_counts_no_launch_on_cpu():
+    """Leaves of any shape are read flat; the CPU wrapper runs the plain
+    version and counts no launch."""
+    leaves = [torch.from_numpy(_x(3 * 100, 7)).reshape(3, 100),
+              torch.from_numpy(_x(5 * 7 * 9, 8)).reshape(5, 7, 9)]
+    ops.reset_launches()
+    codes, scales, firsts = ops.shard_encode_many(leaves)
+    assert ops.launches["shard_encode"] == 0
+    assert firsts == [0, 2, 4]
+    for i, x in enumerate(leaves):
+        pc, ps = codec.shard_encode_plain(x.reshape(-1))
+        assert torch.equal(codes[firsts[i]:firsts[i + 1]], pc)
+        assert torch.equal(scales[firsts[i]:firsts[i + 1]], ps)
+
+
+def test_many_leaf_kernel_refuses_cpu_tensors_and_empty_lists():
+    with pytest.raises(ValueError, match="CUDA"):
+        codec.shard_encode_many_kernel([torch.ones(10)])
+    with pytest.raises(ValueError, match="no leaves"):
+        codec.shard_encode_many_kernel([])

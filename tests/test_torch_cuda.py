@@ -46,6 +46,13 @@ ATTN_CASES = chip_smoke.attention_cases() + [
 WKV_CASES = chip_smoke.wkv6_cases() + [
     ("ragged S", (1, 100, 3, 16, (-1.0, 0.5), f32, True, 64, False)),
     ("chunk 32", (2, 128, 4, 32, (-0.5, 0.5), f32, True, 32, False)),
+    # The kernel stages 32 steps at a time: one step, one chunk and one
+    # step more (at the clip range, against the fp64 oracle too), a ragged
+    # bf16 tail, and a long bf16 run at hd 32.
+    ("one step", (2, 1, 2, 64, (-1.0, 0.5), f32, True, 64, False)),
+    ("S 33 clip range", (1, 33, 2, 64, (-8.0, 3.0), f32, True, 16, True)),
+    ("ragged S bf16", (1, 100, 3, 16, (-1.0, 0.5), bf16, True, 64, False)),
+    ("S 1024 hd 32 bf16", (1, 1024, 2, 32, "init", bf16, False, 64, False)),
 ]
 SSD_CASES = chip_smoke.ssd_cases() + [
     ("fp32 long", (2, 1024, 8, 64, 64, f32, True)),
@@ -78,6 +85,41 @@ def test_codec_kernels_bit_identical_to_plain(gen, n):
                        codec.shard_decode_plain(pc, ps))
 
 
+def test_many_leaf_encode_bit_identical_to_per_leaf_plain(gen):
+    chip_smoke.check_encode_many(codec, chip_smoke.codec_many_leaves(gen))
+
+
+def test_encode_state_launches_the_encode_once(gen):
+    """One ``encode_state`` launches the encode once for all its fp32 leaves
+    (not for the empty or the int32 leaf), and ``decode_state`` the decode
+    once per coded leaf; codes, scales and wire bytes equal the CPU path's."""
+    from repro_torch.core import replication as rep
+
+    state = {"a": torch.randn(1000, generator=gen, device="cuda"),
+             "b": {"c": torch.randn((3, 300), generator=gen, device="cuda"),
+                   "n": torch.arange(5, dtype=torch.int32, device="cuda")},
+             "e": torch.zeros(0, device="cuda"),
+             "w": torch.randn((64, 256), generator=gen, device="cuda")}
+    ops.reset_launches()
+    enc, manifest, wire = rep.encode_state(state, "int8")
+    assert ops.launches["shard_encode"] == 1 and ops.launches["shard_decode"] == 0
+    dec = rep.decode_state(enc, manifest)
+    assert ops.launches == {"shard_encode": 1, "shard_decode": 3,
+                            "flash_attention": 0, "wkv6": 0, "ssd": 0}
+    assert rep.roundtrip_max_error_ok(state, dec, enc)
+    cpu = {"a": state["a"].cpu(), "b": {"c": state["b"]["c"].cpu(),
+                                        "n": state["b"]["n"].cpu()},
+           "e": state["e"].cpu(), "w": state["w"].cpu()}
+    cenc, _, cwire = rep.encode_state(cpu, "int8")
+    assert wire == cwire
+    for g, c in zip(enc, cenc):
+        assert (g.kind, g.payload_bytes, g.wire_bytes) == \
+            (c.kind, c.payload_bytes, c.wire_bytes)
+        if g.kind == "int8":
+            assert torch.equal(g.codes.cpu(), c.codes)
+            assert torch.equal(g.scales.cpu(), c.scales)
+
+
 @pytest.mark.parametrize("case", ATTN_CASES, ids=_ids(ATTN_CASES))
 def test_flash_attention_kernel_matches_plain(gen, case):
     _, c, theta = case
@@ -87,7 +129,7 @@ def test_flash_attention_kernel_matches_plain(gen, case):
 def test_wrappers_launch_and_count_on_cuda(gen):
     ops.reset_launches()
     x = torch.randn(1000, generator=gen, device="cuda")
-    c, s = ops.shard_encode(x)
+    c, s, _ = ops.shard_encode_many([x])
     ops.shard_decode(c, s, 1000)
     q = torch.randn((1, 128, 2, 32), generator=gen, device="cuda",
                     requires_grad=True)

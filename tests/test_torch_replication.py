@@ -107,6 +107,33 @@ def test_encode_decode_identical(states):
     assert trep.roundtrip_max_error_ok(tstate, tdec, tenc)
 
 
+def test_encode_state_codes_every_fp32_leaf_in_one_encode(states):
+    """The int8 leaves hold consecutive rows of one codes buffer and one
+    scales buffer (the many-leaf encode, one launch on the card); the CPU
+    path counts no launch; codes and scales equal the JAX package's."""
+    from repro_torch.kernels import ops
+
+    host, tstate = states
+    ops.reset_launches()
+    tenc, _, _ = trep.encode_state(tstate, "int8")
+    assert ops.launches["shard_encode"] == 0
+    jenc, _, _ = jrep.encode_state(host, "int8", verify_kernel=False)
+    coded = [e for e in tenc if e.kind == "int8"]
+    assert len(coded) == sum(1 for leaf in T.leaves(tstate)
+                             if leaf.dtype == torch.float32 and leaf.numel())
+    row = 0
+    for e in coded:
+        assert e.codes.untyped_storage().data_ptr() == \
+            coded[0].codes.untyped_storage().data_ptr()
+        assert e.codes.storage_offset() == row * 256
+        assert e.scales.storage_offset() == row
+        row += e.codes.shape[0]
+    for je, te in zip(jenc, tenc):
+        if te.kind == "int8":
+            assert np.array_equal(te.codes.numpy(), je.codes)
+            assert np.array_equal(te.scales.numpy(), je.scales)
+
+
 def test_roundtrip_check_catches_corruption(states):
     _, tstate = states
     enc, tm, _ = trep.encode_state(tstate, "int8")

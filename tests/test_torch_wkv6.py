@@ -128,3 +128,132 @@ def test_kernel_refuses_cpu_tensors():
     r = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         W.wkv6_kernel(r, r, r, r, torch.zeros((2, 16)))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, emulated on the CPU.
+# ---------------------------------------------------------------------------
+
+#: hd -> (16-byte row pieces per thread, row groups per column group) of
+#: ``csrc/wkv6.cu``'s state tile (``Tile``).
+KERNEL_TILE = {16: (1, 4), 32: (1, 8), 64: (2, 8)}
+
+
+def _lane_sums(terms):
+    """``terms`` (..., hd) summed as one warp of ``csrc/wkv6.cu``'s
+    preparing pass sums them: lane l adds channels l, l + 32, ... in order,
+    then an xor butterfly over the 32 lanes (offsets 16, 8, 4, 2, 1); lane
+    0's sum."""
+    hd = terms.shape[-1]
+    lanes = torch.zeros(terms.shape[:-1] + (32,), dtype=terms.dtype)
+    for c0 in range(0, hd, 32):
+        n = min(32, hd - c0)
+        lanes[..., :n] = lanes[..., :n] + terms[..., c0:c0 + n]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., torch.arange(32) ^ off]
+    return lanes[..., 0]
+
+
+def _wkv6_kernel_emulation(r, k, v, lw, u, state=None):
+    """``csrc/wkv6.cu``'s arithmetic, step for step, in fp32:
+
+    * ``w = exp(lw)`` once per element, as the chunk is staged;
+    * the hoisted bonus ``a_t = Σ_c (r_c u_c) k_c`` in the preparing
+      warp's order (``_lane_sums``);
+    * ``o_t[d]``: the RG row groups of a column each own the 16-byte pieces
+      q = rg, rg + RG, ... of the key rows (c = 4q + e) and sum ``r_c
+      S[c][d]`` over them in order, row group 0 starting from ``v_d a_t``,
+      the others from 0; the RG partials meet by xor shuffles at offsets
+      RG/2, ..., 2, 1 (the reduce-scatter adds the same pairs, in the same
+      order, as an all-reduce);
+    * ``S[c][d] ← w_c S[c][d] + k_c v_d``.
+
+    The kernel's FMA contractions (one rounding where this rounds twice)
+    are not modelled."""
+    B, S, H, hd = r.shape
+    f32 = torch.float32
+    nq, rg = KERNEL_TILE[hd]
+    r, k, v, lw, u = (t.to(f32) for t in (r, k, v, lw, u))
+    w = torch.exp(lw)
+    a = _lane_sums((r * u) * k)  # (B, S, H)
+    St = (torch.zeros((B, H, hd, hd), dtype=f32) if state is None
+          else state.to(f32).clone())
+    outs = []
+    for t in range(S):
+        # c = 4 (g + RG j) + e: rows as axes (j, g, e); partials (B, H, g, d).
+        prod = (r[:, t, :, :, None] * St).reshape(B, H, nq, rg, 4, hd)
+        acc = torch.zeros((B, H, rg, hd), dtype=f32)
+        acc[:, :, 0] = v[:, t] * a[:, t, :, None]
+        for j in range(nq):
+            for e in range(4):
+                acc = acc + prod[:, :, j, :, e]
+        off = rg // 2
+        while off:
+            acc = acc + acc[:, :, torch.arange(rg) ^ off]
+            off //= 2
+        outs.append(acc[:, :, 0])
+        St = w[:, t, :, :, None] * St + k[:, t, :, :, None] * v[:, t, :, None, :]
+    return torch.stack(outs, dim=1), St
+
+
+def _path_inputs(B, S, H, hd, decays, seed):
+    """fp32 r/k/v as the RWKV-6 path gives them; lw at the RWKV-6 init's
+    decays (-exp(-0.6 + 0.1 normal)) or over ``_decay``'s whole clip range
+    (-exp(uniform(-8, 3)), clipped to [-60, -1e-6]), as
+    ``chip_smoke.wkv6_inputs`` draws them; u; an initial state."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    if decays == "init":
+        lw = -np.exp(-0.6 + 0.1 * rng.standard_normal((B, S, H, hd)))
+    else:
+        lw = -np.exp(rng.uniform(-8.0, 3.0, (B, S, H, hd)))
+    lw = np.clip(lw, -60.0, -1e-6).astype(np.float32)
+    u = (rng.standard_normal((H, hd)) * 0.3).astype(np.float32)
+    state = (rng.standard_normal((B, H, hd, hd)) * 0.1).astype(np.float32)
+    return r, k, v, lw, u, state
+
+
+#: (B, S, H): a long sequence at a narrow width, and a ragged one (the
+#: kernel stages 32 steps at a time).
+EMULATION_SHAPES = [(1, 1024, 2), (2, 77, 3)]
+
+
+@pytest.mark.parametrize("hd", W.HEAD_DIMS)
+@pytest.mark.parametrize("decays", ["init", "clip"])
+@pytest.mark.parametrize("shape", EMULATION_SHAPES,
+                         ids=[f"B{b}-S{s}-H{h}" for b, s, h in EMULATION_SHAPES])
+def test_kernel_arithmetic_within_rec_tol_of_fp64_oracle(shape, decays, hd):
+    """The kernel's arithmetic (each column's rows split over its row
+    groups, the hoisted bonus, exp(lw) at staging) holds ``_rec_tol`` against the fp64
+    sequential oracle at the RWKV-6 init's decays and at the whole clip
+    range, where the chunked form at chunk 64 does not (``wkv6_kernel``'s
+    docstring); and the JAX package's sequential oracle, in fp32."""
+    B, S, H = shape
+    args = _path_inputs(B, S, H, hd, decays, seed=S + hd)
+    out, sf = _wkv6_kernel_emulation(*(_torch(x) for x in args))
+    o64, s64 = W.wkv6_ref(*(torch.from_numpy(x).double() for x in args))
+    tol = _rec_tol("float32")
+    torch.testing.assert_close(out.double(), o64, **tol)
+    torch.testing.assert_close(sf.double(), s64, **tol)
+    ro, rs = R.wkv6_ref(*(_jax(x) for x in args[:5]), state=_jax(args[5]))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ro), **tol)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(rs), **tol)
+
+
+def test_kernel_arithmetic_reads_bf16_inputs_as_the_plain_version():
+    """bf16 r/k/v enter the kernel's fp32 arithmetic as they are; the
+    emulation holds ``_rec_tol``(bf16) against ``wkv6_plain`` and the Pallas
+    kernel (interpret mode) on the same bf16 inputs."""
+    case = (2, 128, 2, 32, 32, -1.0, "bfloat16")
+    r, k, v, lw, u, st = _inputs(case, seed=11)
+    tr, tk, tv = (_torch(x, "bfloat16") for x in (r, k, v))
+    out, sf = _wkv6_kernel_emulation(tr, tk, tv, _torch(lw), _torch(u), _torch(st))
+    po, ps = W.wkv6_plain(tr, tk, tv, _torch(lw), _torch(u), _torch(st), chunk=32)
+    tol = _rec_tol("bfloat16")
+    torch.testing.assert_close(out, po, **tol)
+    torch.testing.assert_close(sf, ps, **tol)
+    jo, js = jax_wkv6_kernel(*(_jax(x, "bfloat16") for x in (r, k, v)),
+                             _jax(lw), _jax(u), state=_jax(st), chunk=32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jo), **tol)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(js), **tol)
