@@ -11,7 +11,9 @@ Phases, each of which fails hard (any mismatch exits non-zero):
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (read from the configs, at both global
    batches, 8 and 12) and over the JAX kernel sweeps; the many-leaf encode
-   (one launch per state) bit for bit against the per-leaf plain encode;
+   and decode (one launch per state) bit for bit against the per-leaf plain
+   versions, the decode over all of GPT-2's fp32 leaf shapes and a ragged
+   set;
 3. the main paths, one per trained family, each at full width and full
    depth under ``ElasticTrainer`` with int8 state replication — 3 steps on
    2 logical devices, a scale-out, 2 steps on 3, a scale-in, 2 steps on 2 —
@@ -19,7 +21,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    it and held to the exact counts its config gives: GPT-2 (codec, flash
    attention), RWKV-6 1.6B (codec, WKV6) and Zamba2 1.2B (codec, SSD, flash
    attention); each path's full state encoded by the many-leaf kernel bit
-   for bit as the per-leaf plain encode; one profiled step each;
+   for bit as the per-leaf plain encode; one scale-out's phases timed apart
+   on the trainer's state (plan, encode, decode, round-trip check), the
+   decoded state bit for bit as the per-leaf plain decode; one profiled
+   step each;
 4. a reference check on a small input: each reduced model's loss and
    gradient norm through the kernels on the card against the plain
    versions on the CPU;
@@ -27,14 +32,16 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    beside the least time the card could take (H100 SXM data sheet: 3.35 TB/s,
    989 TFLOP/s bf16, 67 TFLOP/s fp32); for the codec over GPT-2's state
    also the device time (the kernels' own durations in a profiler trace)
-   beside the CUDA-event window, which holds the host's dispatch too.
+   beside the CUDA-event window, which holds the host's dispatch too, and
+   for the decode the library call ``torch.mul(codes, scales[:, None])``
+   leaf by leaf.
 
     python3 chip_smoke.py --baseline DIR
 
 adds to phase 5 the times of the attention, SSD and WKV6 kernels and the
-per-leaf encode built from the checkout at DIR (an earlier commit,
-unpacked), on the same inputs, in turns with this checkout's (baseline,
-kernel, kernel, baseline).
+per-leaf encode and decode built from the checkout at DIR (an earlier
+commit, unpacked), on the same inputs, in turns with this checkout's
+(baseline, kernel, kernel, baseline).
 
 It prints one JSON line per kernel and per path, the ``kernels`` line, the
 card's name and power limit from ``nvidia-smi``, and last the line
@@ -201,7 +208,81 @@ def check_codec(codec, gen):
     check_encode_many(codec, leaves)
     log(f"codec: many-leaf encode bit-identical to per-leaf plain over "
         f"{len(leaves)} leaves {[tuple(x.shape) for x in leaves]}")
+    leaves = [torch.randn(shape, generator=gen, device="cuda")
+              for shape in gpt2_fp32_shapes()]
+    check_decode_many(codec, *leaf_rows(*codec.shard_encode_many_kernel(leaves)),
+                      [x.numel() for x in leaves])
+    log(f"codec: many-leaf decode bit-identical to per-leaf plain over "
+        f"GPT-2's {len(leaves)} fp32 leaf shapes "
+        f"({sum(x.numel() for x in leaves)} elements)")
+    del leaves
+    ragged = codec_decode_leaves(codec, gen)
+    check_decode_many(codec, *ragged)
+    log(f"codec: many-leaf decode bit-identical to per-leaf plain over the "
+        f"ragged set, numels {ragged[2]}")
     return err
+
+
+def gpt2_fp32_shapes():
+    """The shapes of the non-empty fp32 leaves of GPT-2's training state,
+    from an init on the meta device."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    state = build_model(get_config("gpt2"), device="meta").init_train_state(
+        torch.Generator())
+    return [tuple(leaf.shape) for leaf in T.leaves(state)
+            if leaf.dtype == torch.float32 and leaf.numel()]
+
+
+def codec_decode_leaves(codec, gen):
+    """Leaves for the many-leaf decode, as (codes, scales, numels) lists:
+    separate encodes of 1, 255, 257 and 65,539 values; an empty leaf; codes
+    that are a view 3 bytes off a 16-byte boundary (the kernel's
+    element-wise loads); a numel below what the codes hold; and the rows of
+    one many-leaf encode (views of shared buffers)."""
+    codes, scales, numels = [], [], []
+
+    def add(c, s, n):
+        codes.append(c)
+        scales.append(s)
+        numels.append(n)
+
+    for n in (1, 255, 257, 65539):
+        add(*codec.shard_encode_kernel(
+            torch.randn(n, generator=gen, device="cuda") * 2.0), n)
+    add(torch.empty((0, 256), dtype=torch.int8, device="cuda"),
+        torch.empty((0,), device="cuda"), 0)
+    c, s = codec.shard_encode_kernel(torch.randn(1000, generator=gen, device="cuda"))
+    raw = torch.empty(c.numel() + 3, dtype=torch.int8, device="cuda")
+    raw[3:] = c.reshape(-1)
+    add(raw[3:].view(c.shape), s, 1000)
+    add(c, s, 300)
+    many = [torch.randn(n, generator=gen, device="cuda") for n in (700, 256, 3, 4101)]
+    for c, s, x in zip(*leaf_rows(*codec.shard_encode_many_kernel(many)), many):
+        add(c, s, x.numel())
+    return codes, scales, numels
+
+
+def leaf_rows(codes, scales, firsts):
+    """Each leaf's rows of a many-leaf encode: (codes list, scales list)."""
+    spans = list(zip(firsts, firsts[1:]))
+    return [codes[a:b] for a, b in spans], [scales[a:b] for a, b in spans]
+
+
+def check_decode_many(codec, codes, scales, numels):
+    """``shard_decode_many_kernel`` against ``shard_decode_plain`` leaf by
+    leaf, bit for bit; each output flat, of its numel, 16-byte aligned."""
+    outs = codec.shard_decode_many_kernel(codes, scales, numels)
+    for i, (c, s, n, out) in enumerate(zip(codes, scales, numels, outs)):
+        if out.shape != (n,) or out.data_ptr() % 16:
+            raise AssertionError(f"shard_decode_many leaf {i}: shape "
+                                 f"{tuple(out.shape)} at {out.data_ptr():#x}")
+        if not torch.equal(out, codec.shard_decode_plain(c, s, n)):
+            raise AssertionError(f"shard_decode_many differs from plain at leaf "
+                                 f"{i} (numel {n})")
+    torch.cuda.synchronize()
 
 
 def codec_many_leaves(gen):
@@ -473,7 +554,7 @@ def expected_launches(cfg, n_coded_leaves):
     recompute (the backwards differentiate the plain versions and launch
     nothing); Zamba2's shared attention block, applied outside the remat,
     once per application; in the one scale-out, the encode once for all
-    fp32 leaves together and the decode once per fp32 leaf."""
+    fp32 leaves together and the decode once for all of them."""
     from repro_torch.kernels import ops
     from repro_torch.models import zamba2
 
@@ -481,7 +562,7 @@ def expected_launches(cfg, n_coded_leaves):
     per_layer = steps * cfg.n_layers * (2 if cfg.remat else 1)
     n = dict.fromkeys(ops.launches, 0)
     n["shard_encode"] = 1 if n_coded_leaves else 0
-    n["shard_decode"] = n_coded_leaves
+    n["shard_decode"] = 1 if n_coded_leaves else 0
     if cfg.family == "dense":
         n["flash_attention"] = per_layer
     elif cfg.family == "ssm":
@@ -577,6 +658,11 @@ def main_path(ops, name):
                                       and leaf.numel()])
     log(f"{name}: the many-leaf encode of the full state is bit-identical to "
         f"the per-leaf plain encode")
+    breakdown = scale_out_breakdown(trainer, codec_module)
+    log(f"{name} scale-out phases on the trainer's state, each closed by a "
+        f"sync: {json.dumps(breakdown)} (the trainer's own scale-out "
+        f"{ev_out.wall_s * 1e3:.1f} ms); the decoded state bit-identical to "
+        f"the per-leaf plain decode")
     codec = ev_out.plan_summary["codec"]
     summary = {
         "path": name,
@@ -586,6 +672,7 @@ def main_path(ops, name):
         "step_ms": {n: [t * 1e3 for t in ts] for n, ts in
                     trainer.metrics_snapshot()["step_times"].items()},
         "scale_out_ms": ev_out.wall_s * 1e3,
+        "scale_out_phases_ms": breakdown,
         "scale_in_ms": ev_in.wall_s * 1e3,
         "plan": {k: ev_out.plan_summary[k]
                  for k in ("shard_size", "n_shards", "bytes_per_source",
@@ -603,6 +690,40 @@ def main_path(ops, name):
     log(json.dumps({"main_path": summary}))
     profile_step(trainer, loader, ops)
     return trainer, launches
+
+
+def scale_out_breakdown(trainer, codec):
+    """The phases of one scale-out, run as ``ElasticTrainer.scale_out``
+    runs them on the trainer's state, each timed on the host clock and
+    closed by a sync: ``plan_replication``, ``encode_state``,
+    ``decode_state``, ``roundtrip_max_error_ok``. Fails unless the check
+    passes and every decoded int8 leaf equals its per-leaf plain decode."""
+    from repro_torch import tree as T
+    from repro_torch.core import replication as rep
+
+    state = trainer.state
+    ms = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    timed("plan_replication", lambda: rep.plan_replication(
+        state, trainer.replication_neighbors()))
+    enc, manifest, _ = timed("encode_state", lambda: rep.encode_state(state, "int8"))
+    dec = timed("decode_state", lambda: rep.decode_state(enc, manifest))
+    if not timed("roundtrip_max_error_ok",
+                 lambda: rep.roundtrip_max_error_ok(state, dec, enc)):
+        raise AssertionError("scale-out breakdown: round-trip check failed")
+    for e, d in zip(enc, T.leaves(dec)):
+        if e.kind == "int8" and not torch.equal(
+                d.reshape(-1), codec.shard_decode_plain(e.codes, e.scales, d.numel())):
+            raise AssertionError("decode_state differs from the per-leaf plain decode")
+    return ms
 
 
 def profile_step(trainer, loader, ops):
@@ -775,41 +896,53 @@ def _ms(x):
 
 def time_codec(codec, state):
     """Encode and decode of every fp32 leaf of the full state, as one
-    scale-out runs them: the encode in one launch, the decode leaf by leaf.
-    Each as a CUDA-event window and as device time."""
+    scale-out runs them: each in one launch, as a CUDA-event window and as
+    device time. Beside them the plain versions and, for the decode, the
+    library call ``torch.mul(codes, scales[:, None])`` (int8 times fp32
+    promotes to fp32: one IEEE multiply an element) leaf by leaf, first
+    checked bit-identical to the plain decode."""
     from repro_torch import tree as T
 
     leaves = [leaf for leaf in T.leaves(state) if leaf.dtype == torch.float32]
     n = sum(leaf.numel() for leaf in leaves)
     nb = sum(-(-leaf.numel() // 256) for leaf in leaves)
-    codes, scales, firsts = codec.shard_encode_many_kernel(leaves)
-    enc = [(codes[a:b], scales[a:b]) for a, b in zip(firsts, firsts[1:])]
+    codes_list, scales_list = leaf_rows(*codec.shard_encode_many_kernel(leaves))
+    enc = list(zip(codes_list, scales_list))
     numels = [leaf.numel() for leaf in leaves]
 
     def encode_many():
         codec.shard_encode_many_kernel(leaves)
 
-    def decode_each():
-        for (c, sc), m in zip(enc, numels):
-            codec.shard_decode_kernel(c, sc, m)
+    def decode_many():
+        codec.shard_decode_many_kernel(codes_list, scales_list, numels)
 
+    def library():
+        for c, sc in enc:
+            torch.mul(c, sc[:, None])
+
+    for c, sc in enc:
+        if not torch.equal(torch.mul(c, sc[:, None]), codec.shard_decode_plain(c, sc)):
+            raise AssertionError("torch.mul(codes, scales[:, None]) differs from "
+                                 "the plain decode")
     e_ms = cuda_ms(encode_many, 5)
     e_dev = device_ms(encode_many, "shard_encode")
     e_plain = cuda_ms(lambda: [codec.shard_encode_plain(x) for x in leaves], 2, 1)
-    d_ms = cuda_ms(decode_each, 5)
-    d_dev = device_ms(decode_each, "shard_decode")
+    d_ms = cuda_ms(decode_many, 5)
+    d_dev = device_ms(decode_many, "shard_decode")
     d_plain = cuda_ms(lambda: [codec.shard_decode_plain(c, sc, m)
                                for (c, sc), m in zip(enc, numels)], 2, 1)
+    d_lib = cuda_ms(library, 5)
     coded = nb * 256 + 4 * nb  # codes + scales
     enc_bound = bound(4 * n + coded, 6 * n, PEAK_FP32_FLOPS)
     dec_bound = bound(coded + 4 * n, n, PEAK_FP32_FLOPS)
     log(f"codec over the full state: {len(leaves)} fp32 leaves, {n} elements; "
         f"encode in one launch {e_ms:.4f} ms (device {_ms(e_dev)}); decode "
-        f"leaf by leaf {d_ms:.4f} ms (device {_ms(d_dev)})")
+        f"in one launch {d_ms:.4f} ms (device {_ms(d_dev)}); torch.mul leaf "
+        f"by leaf {d_lib:.4f} ms (bit-identical to the plain decode)")
     return (dict(ms=e_ms, device_ms=e_dev, plain_ms=e_plain,
                  bound=enc_bound, elements=n),
             dict(ms=d_ms, device_ms=d_dev, plain_ms=d_plain, bound=dec_bound,
-                 elements=n))
+                 library_ms=d_lib, elements=n))
 
 
 def time_attention(fa, MaskSpec, gen):
@@ -879,7 +1012,7 @@ def open_baseline(csrc):
     t0 = time.perf_counter()
     old = build.open_library(build.build(csrc), names=(
         "repro_flash_attention_fwd", "repro_ssd_fwd", "repro_wkv6_fwd",
-        "repro_shard_encode"))
+        "repro_shard_encode", "repro_shard_decode"))
     log(f"baseline build from {csrc}: {time.perf_counter() - t0:.1f} s")
     return old
 
@@ -894,11 +1027,11 @@ def _in_turns(name, base_fn, new_fn):
 
 
 def time_baseline_codec(old, leaves):
-    """The baseline's per-leaf encode against this checkout's one launch,
-    over the fp32 ``leaves`` of GPT-2's state, in turns: the baseline leaf by
-    leaf with that checkout's wrapper's host work (flatten, two outputs
-    allocated, the launch on the leaf's stream). Both as CUDA-event windows
-    and as device time."""
+    """The baseline's per-leaf encode and decode against this checkout's one
+    launch each, over the fp32 ``leaves`` of GPT-2's state, in turns: the
+    baseline leaf by leaf with that checkout's wrappers' host work (flatten
+    or contiguous, outputs allocated, the launch on the leaf's stream). Both
+    as CUDA-event windows and as device time. Returns {name: times}."""
     from repro_torch.kernels import build
     from repro_torch.kernels import shard_codec as codec
 
@@ -917,14 +1050,32 @@ def time_baseline_codec(old, leaves):
     def new_encode():
         codec.shard_encode_many_kernel(leaves)
 
-    t = _in_turns("shard_encode", old_encode, new_encode)
-    bd1, nd1, nd2, bd2 = (device_ms(fn, "shard_encode") for fn in (
-        old_encode, new_encode, new_encode, old_encode))
-    log(f"shard_encode device time over {len(leaves)} leaves: baseline "
-        f"{_ms(bd1)} / {_ms(bd2)}, this checkout {_ms(nd1)} / {_ms(nd2)}")
-    if None not in (bd1, bd2, nd1, nd2):
-        t.update(baseline_device_ms=(bd1 + bd2) / 2, device_ms=(nd1 + nd2) / 2)
-    return t
+    codes_list, scales_list = leaf_rows(*codec.shard_encode_many_kernel(leaves))
+    numels = [leaf.numel() for leaf in leaves]
+
+    def old_decode():  # that checkout's shard_decode_kernel, leaf by leaf
+        for c, sc, n in zip(codes_list, scales_list, numels):
+            c, sc = c.contiguous(), sc.contiguous()
+            out = torch.empty((n,), dtype=torch.float32, device=c.device)
+            build.check(old.repro_shard_decode(c.data_ptr(), sc.data_ptr(), n,
+                                               out.data_ptr(), build.stream_of(c)),
+                        "baseline shard_decode")
+
+    def new_decode():
+        codec.shard_decode_many_kernel(codes_list, scales_list, numels)
+
+    times = {}
+    for name, old_fn, new_fn in (("shard_encode", old_encode, new_encode),
+                                 ("shard_decode", old_decode, new_decode)):
+        t = _in_turns(name, old_fn, new_fn)
+        bd1, nd1, nd2, bd2 = (device_ms(fn, name) for fn in (
+            old_fn, new_fn, new_fn, old_fn))
+        log(f"{name} device time over {len(leaves)} leaves: baseline "
+            f"{_ms(bd1)} / {_ms(bd2)}, this checkout {_ms(nd1)} / {_ms(nd2)}")
+        if None not in (bd1, bd2, nd1, nd2):
+            t.update(baseline_device_ms=(bd1 + bd2) / 2, device_ms=(nd1 + nd2) / 2)
+        times[name] = t
+    return times
 
 
 def time_baseline(old, gen, shapes):
@@ -998,8 +1149,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="root of an earlier checkout whose attention, SSD "
-                         "and WKV6 kernels and per-leaf encode phase 5 times "
-                         "beside this one's")
+                         "and WKV6 kernels and per-leaf encode and decode "
+                         "phase 5 times beside this one's")
     baseline = ap.parse_args().baseline
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
@@ -1051,11 +1202,10 @@ def main():
             if old is not None:
                 leaves = [leaf for leaf in T.leaves(trainer.state)
                           if leaf.dtype == torch.float32]
-                base = time_baseline_codec(old, leaves)
-                times["shard_encode"]["baseline_ms"] = base["baseline_ms"]
-                if "baseline_device_ms" in base:
-                    times["shard_encode"]["baseline_device_ms"] = \
-                        base["baseline_device_ms"]
+                for key, base in time_baseline_codec(old, leaves).items():
+                    for field in ("baseline_ms", "baseline_device_ms"):
+                        if field in base:
+                            times[key][field] = base[field]
                 del leaves
         del trainer
         gc.collect()

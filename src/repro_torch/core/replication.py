@@ -13,14 +13,15 @@ byte streams equal the JAX package's for the same state. The 0-d
 ``opt/step`` int32 leaf takes 4 bytes like any other.
 
 On the card the int8 codec runs the shard-codec kernels
-(``kernels.ops.shard_encode_many``, one launch per encoded state, and
-``shard_decode``, one per leaf). The JAX package's
+(``kernels.ops.shard_encode_many`` and ``shard_decode_many``, one launch
+each per state). The JAX package's
 ``verify_kernel`` cross-check against the reference on every encode has no
 counterpart here: the kernels are held to their plain versions by the tests
 and by ``chip_smoke.py``, never on the main path.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -190,20 +191,21 @@ def encode_state(tree, codec: str = wire_codec.CODEC_INT8):
 
 def decode_state(leaves: Sequence[EncodedLeaf], manifest: StateManifest):
     """Inverse of :func:`encode_state`: rebuild the state on the joining
-    node. int8 leaves decode through the shard-codec kernel (fp32-exact
-    ``code * scale``, bit-identical to ``int8_dequantize``). Every decoded
+    node. The int8 leaves decode through the shard-codec kernel, all of them
+    in one launch (fp32-exact ``code * scale``, bit-identical to
+    ``int8_dequantize``); raw leaves are taken as they are. Every decoded
     fp32 element satisfies ``|decoded - original| <= scale_of_its_block / 2``."""
+    coded = [e for e in leaves if e.kind == "int8"]
+    decoded = iter(kernel_ops.shard_decode_many(
+        [e.codes for e in coded], [e.scales for e in coded],
+        [math.prod(e.meta[0]) for e in coded]))
     arrs = []
     for e in leaves:
         if e.kind == "raw":
             arrs.append(e.raw)
             continue
         shape, dtype = e.meta
-        n = 1
-        for s in shape:
-            n *= int(s)
-        dec = kernel_ops.shard_decode(e.codes, e.scales, n)
-        arrs.append(dec.reshape(shape).to(dtype))
+        arrs.append(next(decoded).reshape(shape).to(dtype))
     return T.unflatten(manifest.treedef, arrs)
 
 

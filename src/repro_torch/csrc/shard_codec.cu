@@ -28,12 +28,41 @@
 // one launch and one host dispatch, not one per leaf. repro_shard_encode is
 // the one-leaf case of the same kernel, its leaf passed by value.
 //
+// Decode design: the kernel reads 1 byte of code and 4/256 bytes of scale
+// per element and writes 4 bytes, so it is bound by bytes: 5.016 bytes an
+// element, 0.668 ms over GPT-2's 446,208,768 fp32 state elements at
+// 3.35 TB/s; 80% of them are writes. A half-warp decodes one block, each
+// lane loading the block's scale once; lane `sub` owns four groups of 4
+// codes, 64 bytes apart, each read as one 4-byte load and written as one
+// 16-byte streaming store (__stcs), so every load of the half-warp reads 64
+// consecutive codes and every store writes 256 consecutive bytes. A warp
+// takes kDecodeSteps pairs of blocks, and a lane issues all its loads (16
+// bytes of codes a block, and the scale) before its first store. (On an
+// H100, a lane owning 16 consecutive codes, whose four 16-byte stores lie
+// 64 bytes apart across the warp, ran far slower: the writes, not the
+// loads, need the contiguous pattern; and more pairs of blocks a warp ran
+// no faster. PERF.md has the numbers of each layout and step count, from
+// tools/decode_layouts.py.) The ragged tail past a leaf's `n`
+// is stored element by element; a codes pointer that is not 4-byte aligned
+// is read, and an output pointer that is not 16-byte aligned written,
+// element by element.
+//
+// One launch decodes every int8 leaf of a state (repro_shard_decode_many): a
+// device table gives each leaf's codes, scales and output pointers, its `n`
+// and its first block in the global block count; each warp finds its first
+// block's leaf by binary search. The leaves need not share buffers.
+// repro_shard_decode is the one-leaf case, its leaf passed by value.
+//
 // Bit-identity with the reference (optim/compression.int8_quantize):
 //   scale = max(amax, 1e-12f) * (float)(1/127)   -- a multiply, not "/ 127"
 //   code  = clamp(rintf(x / scale), -127, 127)    -- IEEE division, round
 //                                                    half to even as jnp.round
-// __fdiv_rn pins the division to round-to-nearest whatever the flags; the
-// library is built without --use_fast_math all the same.
+//   value = (float)code * scale                  -- one IEEE multiply
+//                                                    (optim/compression
+//                                                    .int8_dequantize)
+// __fdiv_rn and __fmul_rn pin both to round-to-nearest, and the multiply
+// cannot contract into an FMA; the library is built without
+// --use_fast_math all the same.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,7 +72,14 @@ constexpr int kBlock = 256;
 constexpr int kPerLane = kBlock / 32;
 constexpr int kWarpsPerCta = 8;
 constexpr int kBlocksPerWarp = 2;
-constexpr int kDecodeThreads = 256;
+// Decode: a half-warp decodes a block; its lane `sub` owns the block's
+// elements kGroupStride * g + 4 * sub + i, g < kGroups, i < 4.
+constexpr int kLanesPerBlock = 16;
+constexpr int kGroups = kBlock / (4 * kLanesPerBlock);
+constexpr int kGroupStride = 4 * kLanesPerBlock;
+constexpr int kDecodeWarps = 8;
+constexpr int kDecodeSteps = 1;       // a warp decodes 2 * kDecodeSteps blocks
+constexpr long long kNoLeaf = 0x7fffffffffffffffLL;
 
 // One leaf of an encode: n fp32 values at x, coded as blocks first,
 // first + 1, ... of the output. Laid out as three int64s, as the wrapper
@@ -139,14 +175,122 @@ cudaError_t launch_encode(const Leaf* table, int n_leaves, Leaf single,
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kDecodeThreads)
-shard_decode_kernel(const int8_t* __restrict__ codes,
-                    const float* __restrict__ scales, long long n,
-                    float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = (float)codes[i] * scales[i / kBlock];
+// One leaf of a decode: the first n values of codes * scales[:, None] go to
+// out; its blocks are first, first + 1, ... of the launch. Laid out as five
+// int64s, as the wrapper builds the table.
+struct DecodeLeaf {
+  const int8_t* codes;
+  const float* scales;
+  float* out;
+  long long n;
+  long long first;
+};
+
+__device__ __forceinline__ float decode_one(uint32_t word, int i, float scale) {
+  return __fmul_rn((float)(int8_t)(uint8_t)(word >> (8 * i)), scale);
+}
+
+// The lane's codes of a block: kGroups words, kGroupStride bytes apart, from
+// p = the block's codes + 4 * sub.
+__device__ __forceinline__ void load_lane_codes(const int8_t* p,
+                                                uint32_t (&w)[kGroups]) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(p) & 3) == 0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const int8_t* q = p + g * kGroupStride;
+    if (aligned) {
+      w[g] = __ldg(reinterpret_cast<const uint32_t*>(q));
+    } else {
+      w[g] = 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[g] |= (uint32_t)(uint8_t)__ldg(q + i) << (8 * i);
+    }
+  }
+}
+
+// The lane's values of a block to dst = the block's output + 4 * sub, of
+// which the first `left` (> 0) lie before the leaf's end.
+__device__ __forceinline__ void store_lane(float* dst, int left,
+                                           const uint32_t (&w)[kGroups],
+                                           float scale) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = decode_one(w[g], i, scale);
+    float* q = dst + g * kGroupStride;
+    const int count = left - g * kGroupStride;
+    if (count >= 4 && aligned) {
+      __stcs(reinterpret_cast<float4*>(q), make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < count) q[i] = v[i];
+    }
+  }
+}
+
+// table == nullptr: the one leaf `single`; else n_leaves leaves, none
+// empty, in block order. nb: the blocks the launch decodes.
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+shard_decode_kernel(const DecodeLeaf* __restrict__ table, int n_leaves,
+                    DecodeLeaf single, long long nb) {
+  const long long row0 =
+      ((long long)blockIdx.x * kDecodeWarps + (threadIdx.x >> 5)) *
+      (2 * kDecodeSteps);
+  if (row0 >= nb) return;  // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const int half = lane / kLanesPerBlock;  // which block of a step's two
+  const int sub = lane % kLanesPerBlock;
+  int li = 0;
+  DecodeLeaf leaf = single;
+  long long next = kNoLeaf;  // the first block of the leaf after `leaf`
+  if (table != nullptr) {  // the last leaf whose first block is <= row0
+    int hi = n_leaves - 1;
+    while (li < hi) {
+      const int mid = (li + hi + 1) >> 1;
+      if (table[mid].first <= row0) li = mid; else hi = mid - 1;
+    }
+    leaf = table[li];
+    if (li + 1 < n_leaves) next = table[li + 1].first;
+  }
+  uint32_t w[kDecodeSteps][kGroups];
+  float scale[kDecodeSteps];
+  float* dst[kDecodeSteps];
+  int left[kDecodeSteps];
+#pragma unroll
+  for (int k = 0; k < kDecodeSteps; ++k) {  // every load before any store
+    const long long row = row0 + 2 * k + half;
+    left[k] = 0;
+    dst[k] = nullptr;
+    if (row >= nb) continue;
+    while (row >= next) {  // only with a table
+      leaf = table[++li];
+      next = li + 1 < n_leaves ? table[li + 1].first : kNoLeaf;
+    }
+    const long long blk = row - leaf.first;
+    const long long e0 = blk * kBlock + 4 * sub;
+    if (e0 >= leaf.n) continue;  // past the last block's ragged tail
+    const long long rest = leaf.n - e0;
+    left[k] = rest < kBlock ? (int)rest : kBlock;
+    dst[k] = leaf.out + e0;
+    scale[k] = __ldg(leaf.scales + blk);
+    load_lane_codes(leaf.codes + e0, w[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kDecodeSteps; ++k)
+    if (left[k] > 0) store_lane(dst[k], left[k], w[k], scale[k]);
+}
+
+cudaError_t launch_decode(const DecodeLeaf* table, int n_leaves,
+                          DecodeLeaf single, long long nb,
+                          cudaStream_t stream) {
+  constexpr long long per_cta = (long long)kDecodeWarps * 2 * kDecodeSteps;
+  const long long ctas = (nb + per_cta - 1) / per_cta;
+  shard_decode_kernel<<<(unsigned)ctas, kDecodeWarps * 32, 0, stream>>>(
+      table, n_leaves, single, nb);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -172,16 +316,27 @@ extern "C" int repro_shard_encode_many(const void* table, int n_leaves,
                             scales, (cudaStream_t)stream);
 }
 
-// Writes the first n decoded values (n <= nb*256) of codes * scales[:, None].
+// Writes the first n decoded values (n <= nb*256 for the codes' nb rows) of
+// codes * scales[:, None] to out.
 extern "C" int repro_shard_decode(const void* codes, const void* scales,
                                   long long n, void* out, void* stream) {
   if (n <= 0) return 0;
-  long long ctas = (n + kDecodeThreads - 1) / kDecodeThreads;
-  if (ctas > 1048576) ctas = 1048576;  // grid-stride loop covers the rest
-  shard_decode_kernel<<<(unsigned)ctas, kDecodeThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (const float*)scales, n, (float*)out);
-  return (int)cudaGetLastError();
+  const DecodeLeaf one = {(const int8_t*)codes, (const float*)scales,
+                          (float*)out, n, 0};
+  return (int)launch_decode(nullptr, 0, one, (n + kBlock - 1) / kBlock,
+                            (cudaStream_t)stream);
+}
+
+// table: n_leaves rows of five int64s in device memory, (pointer to the
+// leaf's int8 codes, to its fp32 scales, to its n fp32 outputs, n > 0,
+// index of its first block), in block order, each leaf's first block
+// ceil(n/256) after the one before; nb: the blocks of all leaves.
+extern "C" int repro_shard_decode_many(const void* table, int n_leaves,
+                                       long long nb, void* stream) {
+  if (nb <= 0 || n_leaves <= 0) return 0;
+  const DecodeLeaf none = {nullptr, nullptr, nullptr, 0, 0};
+  return (int)launch_decode((const DecodeLeaf*)table, n_leaves, none, nb,
+                            (cudaStream_t)stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

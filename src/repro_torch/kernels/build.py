@@ -39,6 +39,8 @@ SIGNATURES = {
     # table, n_leaves, nb, codes, scales, stream.
     "repro_shard_encode_many": [_P, _I32, _I64, _P, _P, _P],
     "repro_shard_decode": [_P, _P, _I64, _P, _P],
+    # table, n_leaves, nb, stream.
+    "repro_shard_decode_many": [_P, _I32, _I64, _P],
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                   _I32, _I32, _I32, _F32, _F32, _I32, _I32,
                                   _I32, _I32, _P],

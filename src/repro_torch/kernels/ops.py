@@ -201,3 +201,14 @@ def shard_decode(codes: torch.Tensor, scales: torch.Tensor,
         launches["shard_decode"] += 1
         return _codec.shard_decode_kernel(codes, scales, numel)
     return _codec.shard_decode_plain(codes, scales, numel)
+
+
+def shard_decode_many(codes_list, scales_list, numels):
+    """Per leaf int8 codes ``(nb, 256)``, fp32 scales ``(nb,)`` and a numel
+    → one flat fp32 tensor of ``numel`` values per leaf, each equal to its
+    one-leaf decode. One kernel launch for all leaves on the card."""
+    if codes_list and _on_card(codes_list[0], "shard_decode_many"):
+        if any(numels):
+            launches["shard_decode"] += 1
+        return _codec.shard_decode_many_kernel(codes_list, scales_list, numels)
+    return _codec.shard_decode_many_plain(codes_list, scales_list, numels)

@@ -3,8 +3,8 @@
 The port's plain encode/decode (the CPU path of ``kernels.ops``) must be
 bit-identical to ``optim.compression.int8_quantize``/``int8_dequantize`` and
 to the Pallas ``shard_encode_kernel``/``shard_decode_kernel`` (interpret
-mode), for whole and ragged sizes; the many-leaf encode leaf by leaf as
-well.
+mode), for whole and ragged sizes; the many-leaf encode and decode leaf by
+leaf as well.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -147,3 +147,92 @@ def test_many_leaf_kernel_refuses_cpu_tensors_and_empty_lists():
         codec.shard_encode_many_kernel([torch.ones(10)])
     with pytest.raises(ValueError, match="no leaves"):
         codec.shard_encode_many_kernel([])
+
+
+#: Leaf sizes of a many-leaf decode: ragged tails, n < 256, whole blocks, an
+#: empty leaf, and 65,539 (nb 257, prime: the Pallas kernel at one row a
+#: grid step).
+MANY_DECODE_CASES = {
+    "mixed": [1000, 1, 255, 0, 256 * 3, 257, 17],
+    "large ragged": [65539, 300],
+    "one leaf": [256 * 5],
+}
+
+
+def _encoded(sizes, layout, seed):
+    """The leaves' inputs and (codes, scales) per leaf: as views of one
+    many-leaf encode's buffers, or as separate tensors."""
+    xs = [_x(n, seed + i) for i, n in enumerate(sizes)]
+    leaves = [torch.from_numpy(x) for x in xs]
+    if layout == "views":
+        codes, scales, firsts = codec.shard_encode_many_plain(leaves)
+        spans = list(zip(firsts, firsts[1:]))
+        return xs, [codes[a:b] for a, b in spans], [scales[a:b] for a, b in spans]
+    parts = [codec.shard_encode_plain(x) for x in leaves]
+    return xs, [c.clone() for c, _ in parts], [s.clone() for _, s in parts]
+
+
+@pytest.mark.parametrize("layout", ["views", "separate"])
+@pytest.mark.parametrize("sizes", list(MANY_DECODE_CASES.values()),
+                         ids=list(MANY_DECODE_CASES))
+def test_many_leaf_plain_decode_bit_identical_to_per_leaf_dequantize_and_pallas(
+        sizes, layout):
+    xs, codes, scales = _encoded(sizes, layout, 200)
+    outs = codec.shard_decode_many_plain(codes, scales, sizes)
+    assert len(outs) == len(sizes)
+    for x, c, s, n, out in zip(xs, codes, scales, sizes, outs):
+        assert out.shape == (n,) and out.dtype == torch.float32
+        assert torch.equal(out, codec.shard_decode_plain(c, s, n))
+        if not n:
+            continue
+        jc, js, meta = jax_comp.int8_quantize(jnp.asarray(x))
+        assert np.array_equal(c.numpy(), np.asarray(jc))
+        assert np.array_equal(s.numpy(), np.asarray(js))
+        jd = np.asarray(jax_comp.int8_dequantize(jc, js, meta))
+        assert np.array_equal(out.numpy(), jd)
+        pd = np.asarray(shard_decode_kernel(jc, js)).reshape(-1)[:n]
+        assert np.array_equal(out.numpy(), pd)
+
+
+def test_many_leaf_decode_counts_no_launch_on_cpu():
+    sizes = [300, 0, 256]
+    _, codes, scales = _encoded(sizes, "views", 300)
+    ops.reset_launches()
+    outs = ops.shard_decode_many(codes, scales, sizes)
+    assert ops.launches["shard_decode"] == 0
+    assert [tuple(o.shape) for o in outs] == [(300,), (0,), (256,)]
+    for c, s, n, out in zip(codes, scales, sizes, outs):
+        assert torch.equal(out, codec.shard_decode_plain(c, s, n))
+    assert ops.shard_decode_many([], [], []) == []
+
+
+def test_many_leaf_decode_kernel_refuses_cpu_tensors():
+    codes, scales = torch.zeros((2, 256), dtype=torch.int8), torch.ones(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        codec.shard_decode_many_kernel([codes], [scales], [300])
+
+
+def test_many_leaf_decode_kernel_refuses_empty_lists():
+    with pytest.raises(ValueError, match="no leaves"):
+        codec.shard_decode_many_kernel([], [], [])
+
+
+@pytest.mark.parametrize("bad", ["count", "codes width", "scales rows",
+                                 "numel too large", "codes 1-D"])
+def test_many_leaf_decode_kernel_refuses_mismatched_inputs(bad):
+    codes = [torch.zeros((2, 256), dtype=torch.int8), torch.zeros((1, 256), dtype=torch.int8)]
+    scales = [torch.ones(2), torch.ones(1)]
+    numels = [300, 256]
+    match = "do not match"
+    if bad == "count":
+        numels, match = numels[:1], "numels"
+    elif bad == "codes width":
+        codes[1] = torch.zeros((1, 128), dtype=torch.int8)
+    elif bad == "scales rows":
+        scales[0] = torch.ones(3)
+    elif bad == "numel too large":
+        numels[1], match = 257, "exceeds"
+    else:
+        codes[0] = torch.zeros(512, dtype=torch.int8)
+    with pytest.raises(ValueError, match=match):
+        codec.shard_decode_many_kernel(codes, scales, numels)

@@ -89,10 +89,36 @@ def test_many_leaf_encode_bit_identical_to_per_leaf_plain(gen):
     chip_smoke.check_encode_many(codec, chip_smoke.codec_many_leaves(gen))
 
 
+def test_many_leaf_decode_bit_identical_to_per_leaf_plain_on_gpt2_leaves(gen):
+    leaves = [torch.randn(shape, generator=gen, device="cuda")
+              for shape in chip_smoke.gpt2_fp32_shapes()]
+    codes, scales = chip_smoke.leaf_rows(*codec.shard_encode_many_kernel(leaves))
+    chip_smoke.check_decode_many(codec, codes, scales, [x.numel() for x in leaves])
+
+
+def test_many_leaf_decode_bit_identical_to_per_leaf_plain_on_ragged_set(gen):
+    chip_smoke.check_decode_many(codec, *chip_smoke.codec_decode_leaves(codec, gen))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_many_leaf_decode_reads_misaligned_codes(gen, offset):
+    """Codes views that start ``offset`` bytes off a 16-byte boundary, with
+    an aligned leaf before and after them in the same launch."""
+    x = torch.randn(5000, generator=gen, device="cuda")
+    c, s = codec.shard_encode_kernel(x)
+    raw = torch.empty(c.numel() + offset, dtype=torch.int8, device="cuda")
+    raw[offset:] = c.reshape(-1)
+    view = raw[offset:].view(c.shape)
+    assert view.data_ptr() % 16 == offset % 16
+    chip_smoke.check_decode_many(codec, [c, view, c], [s, s, s], [5000, 4999, 4097])
+
+
 def test_encode_state_launches_the_encode_once(gen):
     """One ``encode_state`` launches the encode once for all its fp32 leaves
     (not for the empty or the int32 leaf), and ``decode_state`` the decode
-    once per coded leaf; codes, scales and wire bytes equal the CPU path's."""
+    once for all coded leaves; codes, scales and wire bytes equal the CPU
+    path's, and the decoded leaves the per-leaf plain decode."""
+    from repro_torch import tree as T
     from repro_torch.core import replication as rep
 
     state = {"a": torch.randn(1000, generator=gen, device="cuda"),
@@ -104,9 +130,13 @@ def test_encode_state_launches_the_encode_once(gen):
     enc, manifest, wire = rep.encode_state(state, "int8")
     assert ops.launches["shard_encode"] == 1 and ops.launches["shard_decode"] == 0
     dec = rep.decode_state(enc, manifest)
-    assert ops.launches == {"shard_encode": 1, "shard_decode": 3,
+    assert ops.launches == {"shard_encode": 1, "shard_decode": 1,
                             "flash_attention": 0, "wkv6": 0, "ssd": 0}
     assert rep.roundtrip_max_error_ok(state, dec, enc)
+    for e, d in zip(enc, T.leaves(dec)):
+        if e.kind == "int8":
+            assert torch.equal(d.reshape(-1), codec.shard_decode_plain(
+                e.codes, e.scales, d.numel()))
     cpu = {"a": state["a"].cpu(), "b": {"c": state["b"]["c"].cpu(),
                                         "n": state["b"]["n"].cpu()},
            "e": state["e"].cpu(), "w": state["w"].cpu()}
@@ -118,6 +148,17 @@ def test_encode_state_launches_the_encode_once(gen):
         if g.kind == "int8":
             assert torch.equal(g.codes.cpu(), c.codes)
             assert torch.equal(g.scales.cpu(), c.scales)
+
+
+def test_decode_many_wrapper_launches_once_on_cuda(gen):
+    codes, scales, numels = chip_smoke.codec_decode_leaves(codec, gen)
+    ops.reset_launches()
+    outs = ops.shard_decode_many(codes, scales, numels)
+    assert ops.launches["shard_decode"] == 1
+    for c, s, n, out in zip(codes, scales, numels, outs):
+        assert torch.equal(out, codec.shard_decode_plain(c, s, n))
+    ops.shard_decode_many(codes[4:5], scales[4:5], numels[4:5])  # empty leaf
+    assert ops.launches["shard_decode"] == 1
 
 
 @pytest.mark.parametrize("case", ATTN_CASES, ids=_ids(ATTN_CASES))
