@@ -24,7 +24,17 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    for bit as the per-leaf plain encode; one scale-out's phases timed apart
    on the trainer's state (plan, encode, decode, round-trip check), the
    decoded state bit for bit as the per-leaf plain decode; one profiled
-   step each;
+   step each; the replica tier on each path's full state (two
+   ``MemoryReplicaStore`` pushes and a restore, bit for bit);
+3b. self-healing: GPT-2 at full width and depth with both recovery tiers
+   attached replays a churn trace (checkpoint, int8 join, degraded link,
+   int8 join, that node's failure, checkpoint, leave) through
+   ``replay_scenario`` under the adaptive recovery policy, then restores
+   from the replica tier and from the disk tier, a step after each: both
+   restores bit for bit the state the last checkpoint pushed, the losses
+   after them that of the original step on the same batch within 1e-5, the
+   launches the exact counts of the config, the ledger's actions the
+   expected list; push, snapshot, background write and restore times;
 4. a reference check on a small input: each reduced model's loss and
    gradient norm through the kernels on the card against the plain
    versions on the CPU;
@@ -43,10 +53,12 @@ per-leaf encode and decode built from the checkout at DIR (an earlier
 commit, unpacked), on the same inputs, in turns with this checkout's
 (baseline, kernel, kernel, baseline).
 
-It prints one JSON line per kernel and per path, the ``kernels`` line, the
-card's name and power limit from ``nvidia-smi``, and last the line
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-repository around it, it exits non-zero and prints no result.
+It prints one JSON line per kernel, per path and for the self-healing
+phase, the ``kernels`` line (launches summed over the paths and the
+self-healing replay), the card's name and power limit from ``nvidia-smi``,
+and last the line ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or without the repository around it, it exits non-zero and prints
+no result.
 """
 import bisect
 import gc
@@ -548,21 +560,21 @@ def _bytes(t):
     return t.reshape(-1).view(torch.uint8)
 
 
-def expected_launches(cfg, n_coded_leaves):
-    """The launches of one path's run, kernel by kernel: per step, each
-    layer's kernel once in the forward and once more in its remat
-    recompute (the backwards differentiate the plain versions and launch
-    nothing); Zamba2's shared attention block, applied outside the remat,
-    once per application; in the one scale-out, the encode once for all
-    fp32 leaves together and the decode once for all of them."""
+def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1):
+    """The launches of a run of ``steps`` steps and ``scale_outs`` int8
+    scale-outs, kernel by kernel: per step, each layer's kernel once in the
+    forward and once more in its remat recompute (the backwards
+    differentiate the plain versions and launch nothing); Zamba2's shared
+    attention block, applied outside the remat, once per application; in
+    each scale-out, the encode once for all fp32 leaves together and the
+    decode once for all of them."""
     from repro_torch.kernels import ops
     from repro_torch.models import zamba2
 
-    steps = sum(STEPS)
     per_layer = steps * cfg.n_layers * (2 if cfg.remat else 1)
     n = dict.fromkeys(ops.launches, 0)
-    n["shard_encode"] = 1 if n_coded_leaves else 0
-    n["shard_decode"] = 1 if n_coded_leaves else 0
+    n["shard_encode"] = scale_outs if n_coded_leaves else 0
+    n["shard_decode"] = scale_outs if n_coded_leaves else 0
     if cfg.family == "dense":
         n["flash_attention"] = per_layer
     elif cfg.family == "ssm":
@@ -580,7 +592,6 @@ def main_path(ops, name):
     from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.core.replication import build_manifest
-    from repro_torch.core.sharding_alg import NeighborLink
     from repro_torch.data import ShardedLoader, TokenStream
     from repro_torch.elastic import ElasticTrainer
     from repro_torch.kernels import shard_codec as codec_module
@@ -590,14 +601,6 @@ def main_path(ops, name):
     model = build_model(cfg)
     loader = ShardedLoader(TokenStream(cfg.vocab, SEQ, seed=0), 4096, [0],
                            PER_DEVICE_BATCH)
-
-    def link_model(device_id):  # as in examples/elastic_training.py
-        fast = device_id % 2 == 0
-        return NeighborLink(prop_s=0.002 if fast else 0.01,
-                            trans_s_per_byte=(1 / (500e6 / 8) if fast
-                                              else 1 / (120e6 / 8)),
-                            sync_s=0.0)
-
     trainer = ElasticTrainer(model, initial=2,
                              per_device_batch=PER_DEVICE_BATCH,
                              link_model=link_model, codec="int8",
@@ -724,6 +727,294 @@ def scale_out_breakdown(trainer, codec):
                 d.reshape(-1), codec.shard_decode_plain(e.codes, e.scales, d.numel())):
             raise AssertionError("decode_state differs from the per-leaf plain decode")
     return ms
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: self-healing — the recovery tiers and a churn-trace replay.
+# ---------------------------------------------------------------------------
+
+#: The ledger actions of the self-healing replay (events 1-6, then event 7,
+#: under the adaptive recovery policy with reshard "auto" and GPT-2's state
+#: sizes); tests/test_torch_churn.py replays the trace on the CPU to the
+#: same list.
+SELF_HEALING_ACTIONS = [
+    "ckpt-saved",  # 1 checkpoint: both tiers
+    "scale-out", "recovery-decided",  # 2 join (int8), then the layout:
+    "reshard-started", "reshard-ready",  # (3, 1) -> (1, 3)
+    "link-degraded",  # 3 (0, 2) at 50 Mbit/s
+    "scale-out", "recovery-decided",  # 4 join (int8), (1, 3) -> (1, 4)
+    "reshard-started", "reshard-ready",
+    "node-failed", "recovery-decided",  # 5 node 3 fails; at dp 1 no full
+    "parked-degraded",  # replica survives, so the policy parks;
+    "recovery-decided", "reshard-started", "reshard-ready",  # (1, 4) -> (1, 3)
+    "ckpt-saved",  # 6 checkpoint: both tiers
+    "scaled-in", "recovery-decided",  # 7 node 2 leaves, (2, 1) -> (1, 2)
+    "reshard-started", "reshard-ready",
+]
+
+
+def self_healing_trace():
+    """The churn trace of the self-healing phase: a checkpoint, an int8
+    join, a degraded link, a second int8 join, that node's failure, a
+    second checkpoint and a leave."""
+    from repro_torch.core.engine import ChurnEvent
+
+    return [ChurnEvent(1.0, "checkpoint"),
+            ChurnEvent(2.0, "join", node=2, codec="int8"),
+            ChurnEvent(3.0, "link-degrade", u=0, v=2, bandwidth_mbps=50.0),
+            ChurnEvent(4.0, "join", node=3, codec="int8"),
+            ChurnEvent(5.0, "node-failure", node=3),
+            ChurnEvent(6.0, "checkpoint"),
+            ChurnEvent(7.0, "leave", node=2)]
+
+
+def link_model(device_id):
+    """Heterogeneous links, as in examples/elastic_training.py."""
+    from repro_torch.core.sharding_alg import NeighborLink
+
+    fast = device_id % 2 == 0
+    return NeighborLink(prop_s=0.002 if fast else 0.01,
+                        trans_s_per_byte=(1 / (500e6 / 8) if fast
+                                          else 1 / (120e6 / 8)),
+                        sync_s=0.0)
+
+
+def timed_tiers():
+    """A ``MemoryReplicaStore`` whose ``push`` and an ``AsyncCheckpointer``
+    whose ``save`` (the blocking copy to the host) record their host-clock
+    seconds, each closed by a sync, in ``times``."""
+    from repro_torch.checkpoint import AsyncCheckpointer, MemoryReplicaStore
+
+    times = {"push": [], "snapshot": []}
+
+    def timing(key, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - t0)
+        return out
+
+    class Store(MemoryReplicaStore):
+        def push(self, *args):
+            return timing("push", super().push, *args)
+
+    class Checkpointer(AsyncCheckpointer):
+        def save(self, *args):
+            return timing("snapshot", super().save, *args)
+
+    return Store, Checkpointer, times
+
+
+def same_bits(host, state):
+    """Leaf by leaf, bit for bit: a host copy against a state."""
+    from repro_torch import tree as T
+
+    leaves = T.leaves(state)
+    return len(host) == len(leaves) and all(
+        h.dtype == x.dtype and h.shape == x.shape
+        and torch.equal(_bytes(h), _bytes(x.detach().cpu()))
+        for h, x in zip(host, leaves))
+
+
+def self_healing(ops):
+    """GPT-2 at full width and depth under ``ElasticTrainer(initial=2,
+    codec="int8")`` with both recovery tiers attached replays
+    ``self_healing_trace`` (adaptive recovery policy, reshard "auto", a step
+    before each event) in two calls: events 1-6, a host copy of the state
+    the event-6 checkpoint pushed, then event 7. Then the first step after
+    event 6 on a batch kept for the restores, ``restore_from("replica")``,
+    a step on that batch, ``restore_from("checkpoint")``, a step on it. The
+    step after event 6 runs after event 7, so that it and the steps after
+    the restores run on the same two devices and global batch (a leave does
+    not touch the state). Fails unless both restores are bit-identical to
+    the host copy, the losses after them equal the original's within 1e-5
+    relative, every loss is finite, the launches are the exact counts of
+    the config and the ledger's actions are ``SELF_HEALING_ACTIONS``."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core.replication import build_manifest
+    from repro_torch.data import ShardedLoader, TokenStream
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.models import build_model
+
+    cfg = get_config("gpt2")
+    loader = ShardedLoader(TokenStream(cfg.vocab, SEQ, seed=1), 4096, [0],
+                           PER_DEVICE_BATCH)
+    losses = []
+
+    class Trainer(ElasticTrainer):
+        """Keeps every step's loss (the replay's steps return theirs to the
+        churn backend, which drops them)."""
+
+        def step(self, batch):
+            m = super().step(batch)
+            losses.append(m["loss"])
+            log(f"  step {self.step_count} on {len(self.active)} devices: "
+                f"loss {m['loss']!r}")
+            return m
+
+    trainer = Trainer(build_model(cfg), initial=2,
+                      per_device_batch=PER_DEVICE_BATCH,
+                      link_model=link_model, codec="int8",
+                      on_reshard=loader.reshard)
+    trainer.init()
+    manifest = build_manifest(trainer.state)
+    Store, Checkpointer, times = timed_tiers()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="self_healing_", dir=os.path.join(HERE, "build"))
+    ck = Checkpointer(ckpt_dir, keep=2)
+    try:
+        trainer.attach_recovery(replica_store=Store(), checkpointer=ck)
+        log(f"self-healing: gpt2 at full width and depth ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}; state {manifest.total_bytes} bytes in "
+            f"{len(manifest.entries)} leaves), both recovery tiers, checkpoints "
+            f"in {ckpt_dir}")
+
+        def batch_fn():
+            return {"tokens": np.concatenate([loader.next_batch(i)
+                                              for i in trainer.device_ids()])}
+
+        replay = dict(steps_between=1, policy="adaptive", reshard="auto",
+                      state_bytes=manifest.total_bytes,
+                      tensor_sizes=manifest.tensor_sizes)
+        trace = self_healing_trace()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ledger_a = trainer.replay_scenario(trace[:6], batch_fn=batch_fn, **replay)
+        at_ckpt = [leaf.detach().to("cpu", copy=True)
+                   for leaf in T.leaves(trainer.state)]
+        ledger_b = trainer.replay_scenario(trace[6:], **replay)
+        batch = batch_fn()
+        log("  the step after event 6:")
+        original = trainer.step(batch)["loss"]
+        restore_ms = {}
+        after = {}
+        for tier in ("replica", "checkpoint"):
+            if tier == "checkpoint":
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ck.wait()
+                restore_ms["wait_for_writes"] = (time.perf_counter() - t1) * 1e3
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            restored_step = trainer.restore_from(tier)
+            torch.cuda.synchronize()
+            restore_ms[tier] = (time.perf_counter() - t1) * 1e3
+            if restored_step != 6:
+                raise AssertionError(f"restore_from({tier!r}) gave step {restored_step}")
+            if not same_bits(at_ckpt, trainer.state):
+                raise AssertionError(f"restore_from({tier!r}) is not the state the "
+                                     f"event-6 checkpoint pushed")
+            log(f"  restore_from({tier!r}) {restore_ms[tier]:.1f} ms, then:")
+            after[tier] = trainer.step(batch)["loss"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ck.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    if trainer.step_count != 9 or len(losses) != 9:
+        raise AssertionError(f"self-healing: {trainer.step_count} steps, expected 9")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"self-healing: non-finite loss: {losses}")
+    for tier, loss in after.items():
+        if not math.isclose(loss, original, rel_tol=1e-5, abs_tol=0.0):
+            raise AssertionError(f"self-healing: loss {loss!r} after restore_from"
+                                 f"({tier!r}), {original!r} originally")
+    n_coded = sum(1 for e in manifest.entries if e.dtype == "float32" and e.nbytes)
+    expected = expected_launches(cfg, n_coded, steps=9, scale_outs=2)
+    if launches != expected:
+        raise AssertionError(f"self-healing: launches {launches}, expected {expected}")
+    actions = ledger_a.actions() + ledger_b.actions()
+    if actions != SELF_HEALING_ACTIONS:
+        raise AssertionError(f"self-healing: ledger actions {actions}")
+    saved = [r.detail for r in list(ledger_a) + list(ledger_b)
+             if r.action == "ckpt-saved"]
+    if saved != [{"step": 1, "tiers": ["replica", "checkpoint"]},
+                 {"step": 6, "tiers": ["replica", "checkpoint"]}]:
+        raise AssertionError(f"self-healing: checkpoints {saved}")
+    joins = [ev for ev in trainer.events if ev.kind == "scale-out"]
+    summary = {
+        "state_bytes": manifest.total_bytes,
+        "ledger_digest": [ledger_a.digest(), ledger_b.digest()],
+        "losses": losses,
+        "loss_after_event_6": original,
+        "loss_after_restore": after,
+        "bit_equal_losses": {tier: loss == original for tier, loss in after.items()},
+        "replica_push_ms": [t * 1e3 for t in times["push"]],
+        "checkpoint_snapshot_ms": [t * 1e3 for t in times["snapshot"]],
+        "checkpoint_write_s": {str(s): t for s, t in ck.writes},
+        "restore_ms": restore_ms,
+        "join_ms": [ev.wall_s * 1e3 for ev in joins],
+        "join_n_shards": [ev.plan_summary["n_shards"] for ev in joins],
+        "reshards": [ev.plan_summary for ev in trainer.events if ev.kind == "reshard"],
+        "launches": launches,
+        "wall_s": wall,
+        "peak_mem_gb": peak / 1e9,
+    }
+    log(f"self-healing: ledger {ledger_a.digest()} + {ledger_b.digest()}; "
+        f"both restores bit-identical to the event-6 state; loss after event 6 "
+        f"{original!r}, after the replica restore {after['replica']!r}, after "
+        f"the checkpoint restore {after['checkpoint']!r} (bit-equal: "
+        f"{summary['bit_equal_losses']})")
+    log(json.dumps({"self_healing": summary}))
+    return launches
+
+
+def replica_tier(trainer, name):
+    """The replica tier on a path's full state: push to a
+    ``MemoryReplicaStore`` over the trainer's neighbors, twice (the second
+    push replaces the first, and the allocator then has the shards' blocks
+    cached), restore, and hold the restored leaves bit for bit against the
+    state. Prints push and restore times, shard counts, bytes held and the
+    peak memory."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import MemoryReplicaStore
+
+    store = MemoryReplicaStore()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    push_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        meta = store.push(0, trainer.step_count, trainer.state,
+                          trainer.replication_neighbors())
+        torch.cuda.synchronize()
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_push = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree, step = store.restore(0)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    peak_restore = torch.cuda.max_memory_allocated()
+    ok = step == trainer.step_count and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bytes(a), _bytes(b))
+        for a, b in zip(T.leaves(tree), T.leaves(trainer.state)))
+    if not ok or len(T.leaves(tree)) != len(T.leaves(trainer.state)):
+        raise AssertionError(f"{name}: the replica restore differs from the state")
+    out = {"path": name, "state_bytes": meta.manifest.total_bytes,
+           "push_ms": push_ms, "restore_ms": restore_ms,
+           "n_shards": len(meta.ranges), "shard_size": meta.ranges[0].nbytes,
+           "bytes_held": {str(h): store.bytes_held(h) for h in sorted(meta.holders)},
+           "state_gb": base / 1e9, "peak_push_gb": peak_push / 1e9,
+           "peak_restore_gb": peak_restore / 1e9}
+    del tree, store
+    log(f"{name} replica tier: push {push_ms[0]:.1f} ms, again {push_ms[1]:.1f} "
+        f"ms; restore {restore_ms:.1f} ms over {out['n_shards']} shards, "
+        f"bit-identical; {json.dumps(out)}")
+    return out
 
 
 def profile_step(trainer, loader, ops):
@@ -1207,10 +1498,18 @@ def main():
                         if field in base:
                             times[key][field] = base[field]
                 del leaves
+        replica_tier(trainer, name)
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
-    log(f"launches over the three paths: {json.dumps(launches)}")
+
+    # Phase 3b: self-healing on GPT-2, its launches counted like a path's.
+    for k, n in self_healing(ops).items():
+        launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"launches over the three paths and the self-healing replay: "
+        f"{json.dumps(launches)}")
 
     # Phase 4: small-input references.
     for name in PATHS:

@@ -1,19 +1,83 @@
-"""Replication-plan entry point, from ``repro/core/plans.py``.
+"""Replication and parallelism plans, from ``repro/core/plans.py``.
 
-Only ``plan_assignment`` is ported so far: the elastic trainer's
-``replication.plan_replication`` is its one caller on the port's path. The
-simulator's whole-plan strategies come with the simulator.
+Ported: ``plan_assignment`` (Algorithm 1 over the auto-dispatched
+Algorithm 2; ``replication.plan_replication`` calls it on every scale-out),
+``ReplicationPlan`` and the parallelism-plan (reshard) layer:
+``ParallelismPlan``, ``candidate_plans``, ``replicated_fraction``,
+``ReshardPolicy``, ``default_reshard_policy``, ``reshard_moved_bytes``,
+``ReshardPlan``, ``reshard_plan``, ``decide_reshard`` and
+``trim_tensor_sizes``. The recovery-policy layer (``core.recovery``) and the
+trainer's churn backend decide layouts through them.
+
+Not ported: the ``Topology``-based whole-plan constructors (``chaos_plan`` and
+its baselines, ``measured_neighbors``, ``build_plan``); the topology and
+the simulator that use them are not ported. ``reshard_plan`` takes any
+object with the topology's link queries (``has_link``, ``link``,
+``has_path``, ``shortest_path``, ``path_delay_per_byte``).
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import math
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.core import codec as wire_codec
 from repro_torch.core.sharding_alg import (
     Assignment,
     NeighborLink,
     auto_greedy_solver,
     binary_search_assignment,
 )
+
+
+@dataclass
+class ReplicationPlan:
+    """What each source sends to the new node, with predicted delay.
+
+    ``shard_size`` is the Algorithm-1 shard granularity in bytes; 0 for the
+    baseline strategies that stream unsharded. It doubles as the credit
+    granularity when churn interrupts the plan: a cancelled stream keeps
+    its whole-shard delivered prefix (partial shards are re-sent).
+
+    ``sources`` stays in **payload** bytes (what the joining node must
+    install); ``codecs``/``wire_sources`` carry the per-source negotiated
+    codec and the bytes that actually cross the wire — payload plus
+    per-block scale framing, framed per shard so whole-wire-shard prefixes
+    decode to whole payload shards (partial-credit exactness). Both stay
+    empty under the ``"none"`` policy so plan summaries — and therefore
+    ledgers — are byte-identical to the pre-codec format."""
+    strategy: str
+    sources: Dict[int, int]  # source node -> payload bytes to send
+    routes: Dict[int, List[int]]  # source node -> path to new node
+    predicted_delay_s: float
+    shard_size: int = 0  # Alg-1 shard bytes; 0 = unsharded stream
+    codecs: Dict[int, str] = field(default_factory=dict)  # source -> codec
+    wire_sources: Dict[int, int] = field(default_factory=dict)  # source -> wire bytes
+
+    def wire_for(self, u: int):
+        """Wire bytes for source ``u`` (== payload bytes under ``none``)."""
+        if u in self.wire_sources:
+            return self.wire_sources[u]
+        return self.sources.get(u, 0)
+
+    def codec_active(self) -> bool:
+        return any(c != wire_codec.CODEC_NONE for c in self.codecs.values())
+
+    def summary(self) -> dict:
+        """Deterministic dict for event ledgers (sorted keys, ints/floats).
+        Codec fields appear only when a non-``none`` codec was negotiated —
+        ``codec="none"`` summaries are byte-identical to the legacy format."""
+        out = {
+            "strategy": self.strategy,
+            "sources": {str(u): int(b) for u, b in sorted(self.sources.items())},
+            "predicted_delay_s": float(self.predicted_delay_s),
+            "shard_size": int(self.shard_size),
+        }
+        if self.codec_active():
+            out["codecs"] = {str(u): c for u, c in sorted(self.codecs.items())}
+            out["wire_bytes"] = {str(u): int(self.wire_for(u))
+                                 for u in sorted(self.sources)}
+        return out
 
 
 def plan_assignment(
@@ -23,3 +87,456 @@ def plan_assignment(
     identical results, different wall time)."""
     return binary_search_assignment(tensor_sizes, neighbors,
                                     solver=auto_greedy_solver, **kw)
+
+
+def _wire_fields(sources: Dict[int, int], codecs: Dict[int, str],
+                 shard_size: int) -> Tuple[Dict[int, str], Dict[int, int]]:
+    """(codecs, wire_sources) for a plan — both empty when every negotiated
+    codec is ``none`` so the plan (and its ledger summary) stays byte-identical
+    to the pre-codec format. Wire bytes are framed **per shard**: ``n`` whole
+    payload shards cost ``n * wire_bytes(shard)`` on the wire."""
+    active = {u: codecs.get(u, wire_codec.CODEC_NONE) for u in sources}
+    if all(c == wire_codec.CODEC_NONE for c in active.values()):
+        return {}, {}
+    wire: Dict[int, int] = {}
+    for u, nbytes in sources.items():
+        c = active[u]
+        if shard_size > 0 and nbytes:
+            n_whole, rem = divmod(int(nbytes), int(shard_size))
+            w = n_whole * wire_codec.wire_bytes(c, shard_size)
+            if rem:
+                w += wire_codec.wire_bytes(c, rem)
+            wire[u] = int(w)
+        else:
+            wire[u] = int(wire_codec.wire_bytes(c, nbytes))
+    return active, wire
+
+
+# ---------------------------------------------------------------------------
+# Parallelism plans (ElasWave-style elastic resharding).
+#
+# A ParallelismPlan is the layout half of the planning contract: where
+# ReplicationPlan says which bytes move between nodes, ParallelismPlan says
+# which (dp, tp) mesh the cluster trains on and which byte interval of the
+# model state each device therefore holds. ``reshard_plan`` bridges the two:
+# given an old and a new layout it emits one ReplicationPlan per fetching
+# node covering exactly the interval deltas, so mid-reshard churn rides the
+# same shard-aligned credit and ``negotiate()`` machinery as scale-out
+# replication.
+# ---------------------------------------------------------------------------
+
+RESHARD_MODES = ("never", "auto", "always")
+
+
+@dataclass(frozen=True)
+class ParallelismPlan:
+    """One parallelism layout: mesh shape + axes + device assignment.
+
+    ``devices`` lists node ids in row-major mesh order (the ``model`` axis
+    fastest), so device ``i`` has tensor-parallel index ``i % tp`` and holds
+    byte interval ``[tp_i*S//tp, (tp_i+1)*S//tp)`` of the training state.
+    ``devices=None`` is a layout template (launch meshes bind real devices
+    later). ``microbatch`` is the gradient-accumulation split the step-time
+    model chose for this layout."""
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...] = ("data", "model")
+    devices: Optional[Tuple[int, ...]] = None
+    microbatch: int = 1
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError("shape/axes rank mismatch")
+        if len(set(self.axes)) != len(self.axes):
+            raise ValueError("duplicate mesh axis")
+        if any(int(s) < 1 for s in self.shape):
+            raise ValueError("mesh axis sizes must be >= 1")
+        if self.devices is not None and len(self.devices) != self.n_devices:
+            raise ValueError("device count != prod(shape)")
+
+    @property
+    def n_devices(self) -> int:
+        return int(math.prod(self.shape))
+
+    def axis_size(self, name: str, default: int = 1) -> int:
+        for a, s in zip(self.axes, self.shape):
+            if a == name:
+                return int(s)
+        return default
+
+    @property
+    def dp(self) -> int:
+        """Data-parallel ways (the ``pod`` axis is DP-outer)."""
+        return self.axis_size("data") * self.axis_size("pod")
+
+    @property
+    def tp(self) -> int:
+        return self.axis_size("model")
+
+    @property
+    def pp(self) -> int:
+        return self.axis_size("pipe")
+
+    def tp_index(self, node: int) -> Optional[int]:
+        if self.devices is None or node not in self.devices:
+            return None
+        return self.devices.index(node) % self.tp
+
+    def shard_interval(self, node: int, state_bytes: int) -> Optional[Tuple[int, int]]:
+        """Byte interval ``[lo, hi)`` of the state this node holds under
+        tensor parallelism (the full state when ``tp == 1``); None when the
+        node is not in the plan."""
+        ti = self.tp_index(node)
+        if ti is None:
+            return None
+        s = int(state_bytes)
+        return (ti * s // self.tp, (ti + 1) * s // self.tp)
+
+    def signature(self) -> List[int]:
+        """Ledger-friendly shape (plain ints, JSON-stable)."""
+        return [int(s) for s in self.shape]
+
+    def to_json(self) -> dict:
+        out = {"shape": self.signature(), "axes": list(self.axes),
+               "microbatch": int(self.microbatch)}
+        if self.devices is not None:
+            out["devices"] = [int(d) for d in self.devices]
+        return out
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ParallelismPlan":
+        devs = d.get("devices")
+        return cls(tuple(int(s) for s in d["shape"]),
+                   tuple(d.get("axes", ("data", "model"))),
+                   tuple(int(x) for x in devs) if devs is not None else None,
+                   int(d.get("microbatch", 1)))
+
+
+def candidate_plans(devices: Sequence[int], *,
+                    axes: Tuple[str, str] = ("data", "model"),
+                    max_tp: Optional[int] = None) -> List[ParallelismPlan]:
+    """The divisor chain of the surviving device count: one (dp, tp)
+    candidate per divisor tp of n, smallest tp first (the paper's
+    divisibility-chain argument applied to mesh shapes)."""
+    devs = tuple(sorted(int(d) for d in devices))
+    n = len(devs)
+    out: List[ParallelismPlan] = []
+    for t in range(1, n + 1):
+        if n % t:
+            continue
+        if max_tp is not None and t > max_tp:
+            break
+        out.append(ParallelismPlan((n // t, t), tuple(axes), devs))
+    return out
+
+
+def replicated_fraction(tensor_sizes: Sequence[int], tp: int) -> float:
+    """Fraction of state bytes a tp-way layout cannot shard (tensors whose
+    byte size tp does not divide degrade to replication — the simulator-side
+    stand-in for ``models.sharding._div``; ``shard_report`` measures the
+    real-array counterpart)."""
+    if tp <= 1 or not tensor_sizes:
+        return 0.0
+    total = float(sum(int(t) for t in tensor_sizes))
+    if total <= 0:
+        return 0.0
+    bad = float(sum(int(t) for t in tensor_sizes if int(t) % tp))
+    return bad / total
+
+
+@dataclass(frozen=True)
+class ReshardPolicy:
+    """Step-time model + decision rule for churn-driven layout changes.
+
+    The model is deliberately pure (a function of layout and byte counts
+    only, never of simulator state), so SimBackend and TrainerBackend reach
+    *identical* decisions on the same trace — ``link_s_per_byte`` is a
+    policy parameter, not a topology measurement. Per device and step:
+
+    * state memory: ``rf*S + (1-rf)*S/tp`` (``rf`` = non-divisible
+      replicated fraction) — tp frees memory;
+    * micro-batching: the per-device batch runs in gradient-accumulation
+      passes whose size is bounded by free memory over
+      ``act_bytes_per_sample``; each pass pays ``pass_overhead_s`` plus a
+      tp activation all-reduce;
+    * dp gradient all-reduce: ``2*(dp-1)/dp`` times the per-device state.
+
+    ``auto`` reshards when the new layout's step time plus the movement
+    cost amortized over ``amortize_steps`` beats the replicate-only layout
+    by ``hysteresis``; ``always`` reshards whenever the best shape differs;
+    ``never`` disables the path entirely (byte-identical replays)."""
+    mode: str = "never"
+    memory_bytes: float = float("inf")
+    act_bytes_per_sample: float = 0.0
+    act_comm_bytes: float = 0.0
+    global_batch: int = 64
+    compute_s_per_sample: float = 0.01
+    pass_overhead_s: float = 0.05
+    link_s_per_byte: float = 1e-8
+    hysteresis: float = 0.05
+    amortize_steps: int = 50
+    max_tp: Optional[int] = None
+
+    def __post_init__(self):
+        if self.mode not in RESHARD_MODES:
+            raise ValueError(f"unknown reshard mode {self.mode!r}")
+
+    def state_per_device(self, tp: int, state_bytes: int,
+                         tensor_sizes: Sequence[int]) -> float:
+        s = float(state_bytes)
+        if tp <= 1:
+            return s
+        rf = replicated_fraction(tensor_sizes, tp)
+        return rf * s + (1.0 - rf) * s / tp
+
+    def step_time(self, plan: ParallelismPlan, state_bytes: int,
+                  tensor_sizes: Sequence[int]) -> float:
+        dp, tp = plan.dp, plan.tp
+        spd = self.state_per_device(tp, state_bytes, tensor_sizes)
+        per_dev = math.ceil(self.global_batch / dp)
+        if self.act_bytes_per_sample > 0 and math.isfinite(self.memory_bytes):
+            free = self.memory_bytes - spd
+            if free < self.act_bytes_per_sample:
+                return float("inf")  # not even a one-sample micro-batch fits
+            mb = max(1, min(per_dev, int(free // self.act_bytes_per_sample)))
+        else:
+            mb = per_dev
+        passes = math.ceil(per_dev / mb)
+        tp_comm = (2.0 * (tp - 1) / tp * self.act_comm_bytes
+                   * self.link_s_per_byte if tp > 1 else 0.0)
+        dp_comm = (2.0 * (dp - 1) / dp * spd * self.link_s_per_byte
+                   if dp > 1 else 0.0)
+        return (per_dev * self.compute_s_per_sample
+                + passes * (self.pass_overhead_s + tp_comm) + dp_comm)
+
+    def best_plan(self, devices: Sequence[int], state_bytes: int,
+                  tensor_sizes: Sequence[int],
+                  ) -> Tuple[ParallelismPlan, float]:
+        """Best candidate on the divisor chain; ties keep the smaller tp
+        (candidates iterate tp ascending)."""
+        best: Optional[Tuple[ParallelismPlan, float]] = None
+        for p in candidate_plans(devices, max_tp=self.max_tp):
+            t = self.step_time(p, state_bytes, tensor_sizes)
+            if best is None or t < best[1] - 1e-12:
+                best = (p, t)
+        assert best is not None, "no devices to plan over"
+        return best
+
+
+def default_reshard_policy(mode: str, state_bytes: int,
+                           global_batch: int = 64) -> ReshardPolicy:
+    """Engine default: a memory-constrained profile scaled to the cluster's
+    state size (device memory 1.125x the full state, activation memory S/8
+    per sample), so pure DP is gradient-accumulation-bound and tp layouts
+    genuinely free memory — the regime where resharding pays."""
+    s = float(max(int(state_bytes), 1))
+    return ReshardPolicy(mode=mode, memory_bytes=1.125 * s,
+                         act_bytes_per_sample=s / 8.0,
+                         act_comm_bytes=s / 256.0,
+                         global_batch=int(global_batch))
+
+
+def _holding(old_plan: Optional[ParallelismPlan], node: int,
+             state_bytes: int) -> Tuple[int, int]:
+    """Byte interval ``node`` holds under the old layout. Nodes outside the
+    old plan (pre-reshard members and fresh joiners, both of which
+    replicated the *full* state) hold everything — which is also why the
+    very first DP→TP reshard moves zero bytes."""
+    if old_plan is None:
+        return (0, int(state_bytes))
+    iv = old_plan.shard_interval(node, state_bytes)
+    return iv if iv is not None else (0, int(state_bytes))
+
+
+def _interval_missing(need: Tuple[int, int],
+                      have: Tuple[int, int]) -> List[Tuple[int, int]]:
+    """``need`` minus ``have``, as up to two disjoint intervals."""
+    lo, hi = need
+    h0, h1 = have
+    out = []
+    if lo < min(h0, hi):
+        out.append((lo, min(h0, hi)))
+    if max(h1, lo) < hi:
+        out.append((max(h1, lo), hi))
+    return [iv for iv in out if iv[0] < iv[1]]
+
+
+def reshard_moved_bytes(old_plan: Optional[ParallelismPlan],
+                        new_plan: ParallelismPlan, state_bytes: int) -> int:
+    """Total bytes the layout change must move — a pure function of the two
+    plans (no topology), shared by both substrates so their decision
+    records carry identical ``moved_bytes``."""
+    moved = 0
+    for node in (new_plan.devices or ()):
+        need = new_plan.shard_interval(node, state_bytes)
+        for a, b in _interval_missing(need, _holding(old_plan, node,
+                                                     state_bytes)):
+            moved += b - a
+    return moved
+
+
+@dataclass
+class ReshardPlan:
+    """The weight-movement schedule between two layouts: one codec-aware
+    ReplicationPlan per node that must fetch interval deltas. Nodes whose
+    new interval is a subset of their old holdings appear in no fetch
+    (DP→TP reshards move nothing). ``lost_bytes`` counts intervals no
+    surviving holder covers (all old holders of a tp shard died) — the
+    checkpoint tier's problem, not the reshard's."""
+    old_plan: Optional[ParallelismPlan]
+    new_plan: ParallelismPlan
+    fetches: Dict[int, ReplicationPlan]
+    moved_bytes: int
+    lost_bytes: int = 0
+
+
+def reshard_plan(old_plan: Optional[ParallelismPlan],
+                 new_plan: ParallelismPlan, topo, state_bytes: int,
+                 *, codec: str = wire_codec.CODEC_NONE) -> ReshardPlan:
+    """Compute the codec-aware movement schedule from ``old_plan`` to
+    ``new_plan``. Missing intervals split at old-layout shard boundaries;
+    each chunk pulls from the cheapest surviving holder (direct link first,
+    else shortest path), with the codec negotiated per source link exactly
+    as scale-out replication negotiates it. Every fetch's ``shard_size``
+    divides all its streams, so mid-reshard churn credits delivered wire
+    shards exactly (``replan_scale_out`` semantics)."""
+    s = int(state_bytes)
+    devs = list(new_plan.devices or ())
+    holdings = {m: _holding(old_plan, m, s) for m in devs}
+    bounds = sorted({x for iv in holdings.values() for x in iv} | {0, s})
+    fetches: Dict[int, ReplicationPlan] = {}
+    moved = 0
+    lost = 0
+    for node in devs:
+        need = new_plan.shard_interval(node, s)
+        missing: List[Tuple[int, int]] = []
+        for a, b in _interval_missing(need, holdings[node]):
+            cuts = [a] + [c for c in bounds if a < c < b] + [b]
+            missing += list(zip(cuts, cuts[1:]))
+        if not missing:
+            continue
+        sources: Dict[int, int] = {}
+        routes: Dict[int, List[int]] = {}
+        codecs: Dict[int, str] = {}
+        worst = 0.0
+        for a, b in missing:
+            best = None
+            for m in devs:
+                if m == node:
+                    continue
+                h0, h1 = holdings[m]
+                if not (h0 <= a and b <= h1):
+                    continue
+                if topo.has_link(m, node):
+                    link = topo.link(m, node)
+                    route = [m, node]
+                    prop, trans = link.latency_s, link.trans_delay_per_byte
+                    cname = wire_codec.negotiate(codec, link.bandwidth_mbps)
+                elif topo.has_path(m, node):
+                    route = topo.shortest_path(m, node, b - a)
+                    prop, trans = topo.path_delay_per_byte(route)
+                    cname = wire_codec.negotiate(
+                        codec, wire_codec.link_bandwidth_mbps(
+                            max(topo.link(x, y).trans_delay_per_byte
+                                for x, y in zip(route, route[1:]))))
+                else:
+                    continue
+                eff = wire_codec.effective_trans_s_per_byte(cname, trans)
+                t = prop + (b - a) * eff
+                if best is None or t < best[0] - 1e-15:
+                    best = (t, m, route, cname)
+            if best is None:
+                lost += b - a
+                continue
+            t, m, route, cname = best
+            sources[m] = sources.get(m, 0) + (b - a)
+            routes[m] = route
+            codecs[m] = cname
+            worst = max(worst, t)
+            moved += b - a
+        if not sources:
+            continue
+        shard = 0
+        for v in sources.values():
+            shard = math.gcd(shard, int(v))
+        cds, wire = _wire_fields(sources, codecs, shard)
+        fetches[node] = ReplicationPlan("reshard", sources, routes, worst,
+                                        shard_size=shard, codecs=cds,
+                                        wire_sources=wire)
+    return ReshardPlan(old_plan, new_plan, fetches, moved, lost)
+
+
+def decide_reshard(policy: ReshardPolicy,
+                   current: Optional[ParallelismPlan],
+                   devices: Sequence[int], state_bytes: int,
+                   tensor_sizes: Sequence[int], *,
+                   mode: Optional[str] = None,
+                   pinned_shape: Optional[Sequence[int]] = None,
+                   ) -> Tuple[Optional[dict], ParallelismPlan]:
+    """The shared (substrate-independent) decision point.
+
+    Returns ``(decision, baseline)``: ``baseline`` is the replicate-only
+    layout at the surviving size (old tp kept when it still divides, else
+    pure DP); ``decision`` is None to stay on the baseline, or a dict with
+    the chosen plan, both step times, and the pure ``moved_bytes`` both
+    substrates ledger identically. A trace event's ``new_shape`` pins the
+    target layout when it matches the surviving device count.
+
+    Callers do not invoke this directly on membership change: the
+    recovery-policy layer (``repro_torch.core.recovery``) routes here when it
+    selects the ``reshard`` action, so the go/no-go is one ledgered
+    decision alongside restore and park."""
+    mode = policy.mode if mode is None else mode
+    if mode not in RESHARD_MODES:
+        raise ValueError(f"unknown reshard mode {mode!r}")
+    devs = tuple(sorted(int(d) for d in devices))
+    n = len(devs)
+    old_tp = current.tp if current is not None else 1
+    base_tp = old_tp if old_tp >= 1 and n % max(old_tp, 1) == 0 else 1
+    baseline = ParallelismPlan((n // base_tp, base_tp), devices=devs)
+    if mode == "never" or n == 0:
+        return None, baseline
+    cand = None
+    if pinned_shape is not None:
+        shape = tuple(int(x) for x in pinned_shape)
+        if len(shape) == 2 and math.prod(shape) == n:
+            cand = ParallelismPlan(shape, devices=devs)
+            t_new = policy.step_time(cand, state_bytes, tensor_sizes)
+    if cand is None:
+        cand, t_new = policy.best_plan(devs, state_bytes, tensor_sizes)
+    t_base = policy.step_time(baseline, state_bytes, tensor_sizes)
+    moved = reshard_moved_bytes(current, cand, state_bytes)
+    # Once tp > 1, a membership change *forces* movement (survivors' shard
+    # intervals shift) — there is no zero-cost replicate-only fallback, so
+    # both auto and always reshard to the best layout.
+    forced = old_tp > 1
+    if not forced:
+        if mode == "always":
+            if cand.shape == baseline.shape:
+                return None, baseline
+        else:  # auto: amortized movement + hysteresis must beat the baseline
+            amortized = (moved * policy.link_s_per_byte
+                         / max(policy.amortize_steps, 1))
+            if not (t_new + amortized < t_base * (1.0 - policy.hysteresis)):
+                return None, baseline
+    return ({"plan": cand, "step_s": t_new, "baseline_step_s": t_base,
+             "moved_bytes": int(moved),
+             "old_shape": (current.signature() if current is not None
+                           else baseline.signature()),
+             "new_shape": cand.signature()}, baseline)
+
+
+def trim_tensor_sizes(tensor_sizes: Sequence[int], nbytes: int) -> List[int]:
+    """Prefix of ``tensor_sizes`` covering exactly ``nbytes`` (last entry
+    truncated). Used when re-planning an interrupted replication: only the
+    not-yet-delivered bytes need new sources."""
+    out: List[int] = []
+    left = int(nbytes)
+    for t in tensor_sizes:
+        if left <= 0:
+            break
+        take = min(int(t), left)
+        out.append(take)
+        left -= take
+    if left > 0:  # caller asked for more than the manifest holds
+        out.append(left)
+    return out

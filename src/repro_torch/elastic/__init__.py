@@ -1,3 +1,8 @@
-from repro_torch.elastic.trainer import ElasticTrainer, LogicalDevice, ScaleEvent
+from repro_torch.elastic.trainer import (
+    ElasticTrainer,
+    LogicalDevice,
+    ScaleEvent,
+    TrainerBackend,
+)
 
-__all__ = ["ElasticTrainer", "LogicalDevice", "ScaleEvent"]
+__all__ = ["ElasticTrainer", "LogicalDevice", "ScaleEvent", "TrainerBackend"]

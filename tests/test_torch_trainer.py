@@ -143,24 +143,50 @@ def test_link_events_reshape_neighbors():
         tr.apply_link_event("bogus", [0])
 
 
+def _catches_import_error(handler: ast.ExceptHandler) -> bool:
+    types = (handler.type.elts if isinstance(handler.type, ast.Tuple)
+             else [handler.type])
+    return any(isinstance(t, ast.Name)
+               and t.id in ("ImportError", "ModuleNotFoundError") for t in types)
+
+
 def _imports(path: pathlib.Path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    """``(module, guarded)`` for every absolute import in ``path``;
+    ``guarded`` when it sits in the body of a ``try`` that catches
+    ``ImportError``."""
+    tree = ast.parse(path.read_text(), str(path))
+    guarded = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and any(
+                _catches_import_error(h) for h in node.handlers):
+            guarded.update(id(sub) for stmt in node.body for sub in ast.walk(stmt))
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, id(node) in guarded) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node.module, id(node) in guarded
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    """The port imports torch, numpy and the standard library: never JAX,
+    ``repro``, ``networkx`` or ``msgpack``, and the optional ``zstandard``
+    only where an ``ImportError`` is caught."""
+    port = ROOT / "src" / "repro_torch"
+    files = sorted(port.rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files
+    names = {p.relative_to(port).as_posix() for p in files
              if "repro_torch" in p.parts}
     assert {"kernels/wkv6.py", "kernels/ssd.py", "models/rwkv6.py",
             "models/mamba2.py", "models/zamba2.py", "configs/rwkv6_1_6b.py",
-            "configs/zamba2_1_2b.py"} <= names
+            "configs/zamba2_1_2b.py", "core/engine.py", "core/recovery.py",
+            "core/plans.py", "scenarios/trace.py", "checkpoint/__init__.py",
+            "checkpoint/_msgpack.py", "checkpoint/async_ckpt.py",
+            "checkpoint/memory_ckpt.py"} <= names
     for path in files:
-        for name in _imports(path):
+        for name, guarded in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+            assert top not in ("jax", "jaxlib", "repro", "networkx",
+                               "msgpack"), (path, name)
+            assert top != "zstandard" or guarded, (path, name)
+    assert ("zstandard", True) in set(_imports(port / "checkpoint" / "async_ckpt.py"))
