@@ -34,7 +34,18 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    restores bit for bit the state the last checkpoint pushed, the losses
    after them that of the original step on the same batch within 1e-5, the
    launches the exact counts of the config, the ledger's actions the
-   expected list; push, snapshot, background write and restore times;
+   expected list; push, snapshot, background write and restore times; the
+   ledger analytics over the replay's two ledgers (span forest and
+   ``validate``, ``span_digest`` against the pinned
+   ``SELF_HEALING_SPAN_DIGEST``, GoodPut, metrics exposition, Chrome trace
+   into ``build/``, markdown) and their host time;
+3c. the training launcher: ``python -m repro_torch.launch.train --arch gpt2
+   --elastic --steps 9 --ckpt DIR --ckpt-every 3`` as a subprocess (reduced;
+   exit 0, its checkpoints loaded with finite leaves); ``main`` in this
+   process for reduced RWKV-6 and Zamba2 (``TRAIN_OK``, exact launches);
+   ``train_elastic`` on GPT-2 at full width and depth, global batch 16 -> 20
+   -> 16 over 4 -> 5 -> 4 logical devices, launches held to the exact
+   counts, step times, the scale-out and peak memory;
 4. a reference check on a small input: each reduced model's loss and
    gradient norm through the kernels on the card against the plain
    versions on the CPU;
@@ -53,10 +64,10 @@ per-leaf encode and decode built from the checkout at DIR (an earlier
 commit, unpacked), on the same inputs, in turns with this checkout's
 (baseline, kernel, kernel, baseline).
 
-It prints one JSON line per kernel, per path and for the self-healing
-phase, the ``kernels`` line (launches summed over the paths and the
-self-healing replay), the card's name and power limit from ``nvidia-smi``,
-and last the line ``{"ok": true, "device": {...}}``. Without a CUDA
+It prints one JSON line per kernel, per path, for the self-healing phase
+and for the launcher, the ``kernels`` line (launches summed over the paths,
+the self-healing replay and the launcher's in-process runs), the card's
+name and power limit from ``nvidia-smi``, and last the line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository around it, it exits non-zero and prints
 no result.
 """
@@ -887,9 +898,11 @@ def self_healing(ops):
         ops.reset_launches()
         t0 = time.perf_counter()
         ledger_a = trainer.replay_scenario(trace[:6], batch_fn=batch_fn, **replay)
+        backend_a = trainer.last_backend
         at_ckpt = [leaf.detach().to("cpu", copy=True)
                    for leaf in T.leaves(trainer.state)]
         ledger_b = trainer.replay_scenario(trace[6:], **replay)
+        backend_b = trainer.last_backend
         batch = batch_fn()
         log("  the step after event 6:")
         original = trainer.step(batch)["loss"]
@@ -942,6 +955,7 @@ def self_healing(ops):
                  {"step": 6, "tiers": ["replica", "checkpoint"]}]:
         raise AssertionError(f"self-healing: checkpoints {saved}")
     joins = [ev for ev in trainer.events if ev.kind == "scale-out"]
+    analytics = ledger_analytics([(ledger_a, backend_a), (ledger_b, backend_b)])
     summary = {
         "state_bytes": manifest.total_bytes,
         "ledger_digest": [ledger_a.digest(), ledger_b.digest()],
@@ -959,6 +973,7 @@ def self_healing(ops):
         "launches": launches,
         "wall_s": wall,
         "peak_mem_gb": peak / 1e9,
+        "analytics": analytics,
     }
     log(f"self-healing: ledger {ledger_a.digest()} + {ledger_b.digest()}; "
         f"both restores bit-identical to the event-6 state; loss after event 6 "
@@ -966,6 +981,221 @@ def self_healing(ops):
         f"the checkpoint restore {after['checkpoint']!r} (bit-equal: "
         f"{summary['bit_equal_losses']})")
     log(json.dumps({"self_healing": summary}))
+    return launches
+
+
+#: The JAX package's ``span_digest`` of the self-healing replay's two
+#: ledgers (events 1-6, then event 7); tests/test_torch_churn.py replays the
+#: trace on the CPU and holds the JAX function to these values, so the
+#: port's analytics on the card are held to the reference without JAX.
+SELF_HEALING_SPAN_DIGEST = (
+    "1205e817cd3907aaa0bbbbbc1543f3f9b5ea9eba3a90cfa360e4f7f84727a6a8",
+    "0c7ffa622c1df105260e6d6c38214e5a6b9ac8ce0219eae8cc88034d707b7890")
+
+
+def ledger_analytics(replays):
+    """The ledger analytics over each ``(ledger, backend)`` of a replay:
+    ``build_spans``, ``validate == []``, ``span_digest`` equal to
+    ``SELF_HEALING_SPAN_DIGEST``, ``classify`` of the forest's windows
+    equal to ``goodput_report``'s components, ``collect_trainer_backend``'s
+    exposition, ``write_chrome_trace`` into ``build/`` and
+    ``validate_trace_events == []`` on what it wrote, ``markdown_report``.
+    Fails on any mismatch. Returns per ledger the digest, the GoodPut
+    fraction and the host ms the analytics took."""
+    from repro_torch.core import goodput, telemetry
+
+    out = []
+    for k, (ledger, backend) in enumerate(replays):
+        t0 = time.perf_counter()
+        forest = telemetry.build_spans(ledger)
+        problems = telemetry.validate(ledger, forest)
+        digest = telemetry.span_digest(ledger, forest)
+        window = dict(t_start=forest.t_start, t_end=forest.t_end)
+        report = goodput.goodput_report(ledger, **window)
+        components = goodput.classify(
+            [(a, b, cat) for a, b, cat, _, _ in forest.intervals], **window)
+        reg = telemetry.MetricsRegistry()
+        telemetry.collect_trainer_backend(reg, backend, ledger, report=report)
+        prom = reg.exposition()
+        path = os.path.join(HERE, "build", f"self_healing_{k}.trace.json")
+        telemetry.write_chrome_trace(path, forest, metadata={"ledger": ledger.digest()})
+        with open(path) as fh:
+            trace_problems = telemetry.validate_trace_events(json.load(fh)["traceEvents"])
+        markdown = telemetry.markdown_report(ledger, forest, report=report,
+                                             title=f"self-healing ledger {k}")
+        ms = (time.perf_counter() - t0) * 1e3
+        if problems or trace_problems:
+            raise AssertionError(f"analytics of ledger {k}: {problems + trace_problems}")
+        if digest != SELF_HEALING_SPAN_DIGEST[k]:
+            raise AssertionError(f"analytics of ledger {k}: span digest {digest}, "
+                                 f"expected {SELF_HEALING_SPAN_DIGEST[k]}")
+        if components != report.components:
+            raise AssertionError(f"analytics of ledger {k}: the forest classifies to "
+                                 f"{components}, the report {report.components}")
+        steps = f"chaos_trainer_steps_total {backend.trainer.step_count}\n"
+        degraded = f"chaos_engine_degraded {int(backend.degraded)}\n"
+        if steps not in prom or degraded not in prom or not markdown.startswith("# "):
+            raise AssertionError(f"analytics of ledger {k}: exposition {prom!r}")
+        out.append({"span_digest": digest, "goodput_fraction": report.goodput_fraction,
+                    "n_spans": len(forest.roots), "n_records": len(ledger),
+                    "exposition_lines": prom.count("\n"), "chrome_trace": path,
+                    "host_ms": ms})
+        log(f"analytics of ledger {k}: span digest {digest}, goodput fraction "
+            f"{report.goodput_fraction!r}, {len(forest.roots)} spans, "
+            f"{prom.count(chr(10))} exposition lines; validate [], "
+            f"classify == goodput_report, trace events valid; {ms:.3f} ms host")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the training launcher.
+# ---------------------------------------------------------------------------
+
+#: The launcher's reduced plain runs (phase 3c, b): the recurrent families.
+LAUNCH_REDUCED = ("rwkv6-1.6b", "zamba2-1.2b")
+#: The full-width launcher run (phase 3c, c): GPT-2 at global batch 32 on the
+#: launcher's pool of 8, so per-device batch 4 on 4 -> 5 -> 4 devices.
+LAUNCH_BATCH = 32
+LAUNCH_STEPS = 9
+
+
+def launcher_cli():
+    """``python -m repro_torch.launch.train --arch gpt2 --elastic --steps 9
+    --ckpt DIR --ckpt-every 3`` (reduced) in its own process: it must exit
+    0, and its checkpoints, at steps 0, 3 and 6, load through the port's
+    ``load_checkpoint`` with finite leaves. ``DIR`` is a temporary
+    directory under ``build/``, removed at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="launcher_", dir=os.path.join(HERE, "build"))
+    try:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gpt2",
+               "--elastic", "--steps", "9", "--ckpt", ckpt_dir, "--ckpt-every", "3"]
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              cwd=HERE, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  launcher: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"launcher exited {proc.returncode}: {proc.stderr[-3000:]}")
+        names = sorted(os.listdir(ckpt_dir))
+        if names != [f"step_{s:08d}.ckpt" for s in (0, 3, 6)]:
+            raise AssertionError(f"launcher checkpoints: {names}")
+        skeleton = build_model(get_config("gpt2").reduced(),
+                               device="meta").init_train_state(torch.Generator())
+        for name in names:
+            leaves = T.leaves(load_checkpoint(os.path.join(ckpt_dir, name), skeleton))
+            if not all(bool(torch.isfinite(leaf).all()) for leaf in leaves
+                       if leaf.is_floating_point()):
+                raise AssertionError(f"launcher checkpoint {name}: non-finite leaves")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"launcher CLI (reduced gpt2, elastic, 9 steps): exit 0 in {wall:.1f} s; "
+        f"checkpoints {names} load with finite leaves")
+    return wall
+
+
+def launcher_reduced(ops, arch):
+    """``main(["--arch", arch, "--steps", "3"])`` in this process (reduced,
+    plain mode, on the card): it must print ``TRAIN_OK`` and launch the
+    family's kernels exactly as ``expected_launches`` gives them."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--arch", arch, "--steps", "3"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    for line in out.getvalue().splitlines():
+        log(f"  launcher {arch}: {line}")
+    if rc != 0 or not out.getvalue().rstrip().endswith("TRAIN_OK"):
+        raise AssertionError(f"launcher {arch}: exit {rc}, output {out.getvalue()!r}")
+    cfg = dataclasses.replace(get_config(arch).reduced(), learning_rate=1e-3)
+    expected = expected_launches(cfg, 0, steps=3)
+    if launches != expected:
+        raise AssertionError(f"launcher {arch}: launches {launches}, expected {expected}")
+    log(f"launcher {arch} (reduced, plain, 3 steps): TRAIN_OK in {wall:.1f} s; "
+        f"launches {json.dumps(launches)}")
+    return launches
+
+
+def launcher_full_width(ops):
+    """``train_elastic`` on GPT-2 at full width and depth, global batch
+    ``LAUNCH_BATCH`` at sequence ``SEQ`` (the full-config ``train_4k`` cell,
+    256 x 4096, does not fit one card), ``LAUNCH_STEPS`` steps on 4 -> 5 ->
+    4 logical devices, codec "none". Fails unless the devices per step
+    follow the launcher's schedule, every loss is finite and the launches
+    are the exact counts of the config (no codec launch)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    cfg = get_config("gpt2")
+    model = build_model(cfg)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run = train.train_elastic(model, ShapeCell("launch", SEQ, LAUNCH_BATCH, "train"),
+                                  LAUNCH_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for line in out.getvalue().splitlines():
+        log(f"  launcher gpt2: {line}")
+    expected = expected_launches(cfg, 0, steps=LAUNCH_STEPS, scale_outs=0)
+    if launches != expected:
+        raise AssertionError(f"launcher gpt2: launches {launches}, expected {expected}")
+    if run.n_active != [4, 4, 4, 5, 5, 5, 4, 4, 4]:
+        raise AssertionError(f"launcher gpt2: devices per step {run.n_active}")
+    if not all(math.isfinite(x) for x in run.losses):
+        raise AssertionError(f"launcher gpt2: non-finite loss: {run.losses}")
+    times = run.trainer.metrics_snapshot()["step_times"]
+    scale_out = [ev for ev in run.events if ev.kind == "scale-out"][0]
+    summary = {
+        "global_batch": {n: n * run.trainer.per_device_batch for n in times},
+        "losses": run.losses,
+        "step_ms": {n: [t * 1e3 for t in ts] for n, ts in times.items()},
+        # The first step on 4 devices is the run's first: it holds warm-up.
+        "median_step_ms": {n: float(np.median(ts[1:] if n == 4 else ts)) * 1e3
+                           for n, ts in times.items()},
+        "scale_out_ms": scale_out.wall_s * 1e3,
+        "scale_out_plan": {k: scale_out.plan_summary[k]
+                           for k in ("shard_size", "n_shards", "predicted_completion_s")},
+        "launches": launches,
+        "wall_s": wall,
+        "peak_mem_gb": peak / 1e9,
+    }
+    log(f"launcher gpt2 at full width: median step {summary['median_step_ms'][4]:.1f} "
+        f"ms on 4 devices (global batch {4 * run.trainer.per_device_batch}), "
+        f"{summary['median_step_ms'][5]:.1f} ms on 5; scale-out "
+        f"{summary['scale_out_ms']:.1f} ms; peak {peak / 1e9:.1f} GB")
+    log(json.dumps({"launcher": summary}))
+    del run, model
     return launches
 
 
@@ -1508,8 +1738,17 @@ def main():
         launches[k] += n
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"launches over the three paths and the self-healing replay: "
-        f"{json.dumps(launches)}")
+    # Phase 3c: the launcher, its in-process launches counted like a path's.
+    launcher_cli()
+    for arch in LAUNCH_REDUCED:
+        for k, n in launcher_reduced(ops, arch).items():
+            launches[k] += n
+    for k, n in launcher_full_width(ops).items():
+        launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"launches over the three paths, the self-healing replay and the "
+        f"launcher: {json.dumps(launches)}")
 
     # Phase 4: small-input references.
     for name in PATHS:

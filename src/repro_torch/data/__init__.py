@@ -1,3 +1,8 @@
-from repro_torch.data.synthetic import ShardedLoader, TokenStream, node_split
+from repro_torch.data.synthetic import (
+    ShardedLoader,
+    TokenStream,
+    make_train_batch,
+    node_split,
+)
 
-__all__ = ["ShardedLoader", "TokenStream", "node_split"]
+__all__ = ["ShardedLoader", "TokenStream", "make_train_batch", "node_split"]

@@ -9,12 +9,13 @@ membership changes.
 
 Token streams are Zipf-ish Markov chains so that models can actually *learn*
 (loss decreases) without external datasets. The same seed yields the same
-tokens as the JAX package's stream.
+tokens as the JAX package's stream, and ``make_train_batch`` the same
+global batch of a shape cell.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -80,3 +81,20 @@ class ShardedLoader:
         idx = [split[(cur + i) % len(split)] for i in range(self.batch_per_node)]
         self._cursors[node_id] = (cur + self.batch_per_node) % max(len(split), 1)
         return self.stream.batch(idx)
+
+
+def make_train_batch(cfg, cell, stream: Optional[TokenStream] = None,
+                     seed: int = 0) -> dict:
+    """Host-side global batch for a shape cell (used by the launcher)."""
+    stream = stream or TokenStream(cfg.vocab, cell.seq_len, seed=seed)
+    tokens = stream.batch(range(cell.global_batch))
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        rng = np.random.RandomState(seed)
+        batch["patches"] = rng.randn(cell.global_batch, cfg.n_patches,
+                                     cfg.d_model).astype(np.float32) * 0.02
+    if cfg.family == "encdec":
+        rng = np.random.RandomState(seed)
+        batch["frames"] = rng.randn(cell.global_batch, cfg.enc_len,
+                                    cfg.d_model).astype(np.float32) * 0.02
+    return batch

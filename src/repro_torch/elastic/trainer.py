@@ -105,6 +105,7 @@ class ElasticTrainer:
         # keyed per (device, trace link); the slowest impairment wins.
         self._link_overrides: Dict[int, Dict[object, NeighborLink]] = {}
         self._step_fn = None
+        self.last_backend = None
         # Current parallelism layout: tp-ways of tensor parallelism over the
         # active devices and the micro-batch split the reshard policy chose.
         self._tp = 1
@@ -414,16 +415,18 @@ class ElasticTrainer:
         ``SimBackend`` gets yields the same decisions on the same trace.
         ``batch_fn()`` gives the global batch of each step taken before an
         event. Returns the event ledger; per-event wall times land in
-        ``self.events``."""
-        engine = ChurnEngine(TrainerBackend(self, batch_fn=batch_fn,
-                                            steps_between=steps_between,
-                                            min_active=min_active,
-                                            reshard=reshard,
-                                            reshard_policy=reshard_policy,
-                                            state_bytes=state_bytes,
-                                            tensor_sizes=tensor_sizes,
-                                            policy=policy))
-        return engine.run(events)
+        ``self.events``, and the replay's backend stays in
+        ``self.last_backend`` for a metrics scrape
+        (``core.telemetry.collect_trainer_backend``)."""
+        self.last_backend = TrainerBackend(self, batch_fn=batch_fn,
+                                           steps_between=steps_between,
+                                           min_active=min_active,
+                                           reshard=reshard,
+                                           reshard_policy=reshard_policy,
+                                           state_bytes=state_bytes,
+                                           tensor_sizes=tensor_sizes,
+                                           policy=policy)
+        return ChurnEngine(self.last_backend).run(events)
 
     def metrics_snapshot(self) -> dict:
         """Point-in-time read of training observables for telemetry scrapes.

@@ -7,8 +7,8 @@ the port's loader and replayed through the port's ``TrainerBackend``.
 * On the port's real ``ElasticTrainer`` (reduced GPT-2 on the CPU, 12
   logical devices whose ids are the topology's node ids) the recovery
   decisions and the span stream equal the JAX simulator's
-  (``decision_digest``, ``span_digest``; the latter is the JAX function fed
-  the port's ledger, until the ledger analytics are ported).
+  (``decision_digest``, and ``span_digest``, the JAX function and the
+  port's alike, on the port's ledger).
 * The trainer's recovery tiers restore bit for bit, and the reshard and
   recovery layers decide as the JAX ones do.
 """
@@ -48,6 +48,8 @@ from repro_torch.configs import get_config
 from repro_torch.convert import state_from_numpy
 from repro_torch.core import plans as tplans
 from repro_torch.core import recovery as trecovery
+from repro_torch.core import goodput as tgoodput
+from repro_torch.core import telemetry as ttelemetry
 from repro_torch.core.engine import ChurnEngine, ChurnEvent
 from repro_torch.core.replication import build_manifest, flatten_state
 from repro_torch.elastic import ElasticTrainer, LogicalDevice, TrainerBackend
@@ -333,6 +335,7 @@ def test_real_trainer_span_digest_matches_simulator(gpt2_state):
                                 batch_fn=_batch_fn(tr), state_bytes=32 * MB,
                                 tensor_sizes=[MB] * 32)
     assert span_digest(ledger) == span_digest(sim_ledger)
+    assert ttelemetry.span_digest(ledger) == span_digest(sim_ledger)
     assert {r.action for r in ledger} >= {"scale-out", "node-failed",
                                           "failover", "link-lossy",
                                           "ckpt-skipped-no-checkpointer"}
@@ -478,3 +481,40 @@ def test_self_healing_replay_on_the_cpu(gpt2_state, tmp_path):
     ck.close()
     assert tr.step_count == 9 and tr.device_ids() == [0, 1]
     assert [e.kind for e in tr.events].count("scale-out") == 2
+
+
+def test_self_healing_span_digest_is_pinned(gpt2_state, tmp_path):
+    """``chip_smoke.self_healing``'s two replays (events 1-6, then event 7)
+    at GPT-2's full state sizes, with both tiers attached: the JAX
+    ``span_digest`` of each ledger is ``SELF_HEALING_SPAN_DIGEST``, the
+    value the card phase holds the port's analytics to, and the port's
+    analytics agree with the JAX package's on both ledgers."""
+    cs = _chip_smoke()
+    full = build_manifest(build_model(get_config("gpt2"), device="meta")
+                          .init_train_state(torch.Generator()))
+    tr = _trainer(gpt2_state, [0, 1, 2, 3], initial=2, codec="int8",
+                  link_model=cs.link_model)
+    ck = AsyncCheckpointer(tmp_path, keep=2)
+    tr.attach_recovery(replica_store=MemoryReplicaStore(), checkpointer=ck)
+    replay = dict(steps_between=1, policy="adaptive", reshard="auto",
+                  state_bytes=full.total_bytes, tensor_sizes=full.tensor_sizes)
+    trace = cs.self_healing_trace()
+    ledgers = [tr.replay_scenario(trace[:6], batch_fn=_batch_fn(tr), **replay)]
+    backend_a = tr.last_backend
+    ledgers.append(tr.replay_scenario(trace[6:], **replay))
+    backend_b = tr.last_backend
+    ck.close()
+    assert isinstance(backend_a, TrainerBackend) and backend_b is not backend_a
+    assert ledgers[0].actions() + ledgers[1].actions() == cs.SELF_HEALING_ACTIONS
+    assert tuple(span_digest(led) for led in ledgers) == cs.SELF_HEALING_SPAN_DIGEST
+    for led, backend in zip(ledgers, (backend_a, backend_b)):
+        forest = ttelemetry.build_spans(led)
+        assert ttelemetry.validate(led, forest) == []
+        assert ttelemetry.span_digest(led, forest) == span_digest(led)
+        window = dict(t_start=forest.t_start, t_end=forest.t_end)
+        report = tgoodput.goodput_report(led, **window)
+        assert forest.badput_components() == report.components
+        reg = ttelemetry.MetricsRegistry()
+        ttelemetry.collect_trainer_backend(reg, backend, led, report=report)
+        assert f"chaos_engine_degraded {int(backend.degraded)}\n" in reg.exposition()
+    assert (backend_a.degraded, backend_b.degraded) == (True, False)

@@ -173,7 +173,7 @@ def test_port_imports_neither_jax_nor_repro():
     only where an ``ImportError`` is caught."""
     port = ROOT / "src" / "repro_torch"
     files = sorted(port.rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_elastic_training.py"]
     assert len(files) > 20
     names = {p.relative_to(port).as_posix() for p in files
              if "repro_torch" in p.parts}
@@ -182,7 +182,8 @@ def test_port_imports_neither_jax_nor_repro():
             "configs/zamba2_1_2b.py", "core/engine.py", "core/recovery.py",
             "core/plans.py", "scenarios/trace.py", "checkpoint/__init__.py",
             "checkpoint/_msgpack.py", "checkpoint/async_ckpt.py",
-            "checkpoint/memory_ckpt.py"} <= names
+            "checkpoint/memory_ckpt.py", "core/goodput.py", "core/telemetry.py",
+            "launch/train.py"} <= names
     for path in files:
         for name, guarded in _imports(path):
             top = name.split(".")[0]
