@@ -10,7 +10,9 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    spill lines;
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (read from the configs, at both global
-   batches, 8 and 12) and over the JAX kernel sweeps; the many-leaf encode
+   batches, 8 and 12, and at the serving runs' prefill and decode shapes:
+   attention over the cache at q_offsets 0 to 1151 and a ragged Skv, WKV6
+   at S 1 to 33 from a state) and over the JAX kernel sweeps; the many-leaf encode
    and decode (one launch per state) bit for bit against the per-leaf plain
    versions, the decode over all of GPT-2's fp32 leaf shapes and a ragged
    set;
@@ -46,6 +48,19 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    ``train_elastic`` on GPT-2 at full width and depth, global batch 16 -> 20
    -> 16 over 4 -> 5 -> 4 logical devices, launches held to the exact
    counts, step times, the scale-out and peak memory;
+3d. serving: GPT-2 and RWKV-6 1.6B at full width and depth through the
+   serving launcher's ``generate`` (``Model.prefill``, ``Model.decode_step``):
+   batch 8, a 1024-token prompt, 128 greedy new tokens, a cache of 1152
+   positions, bf16; launches held to the exact counts; prefill ms, decode
+   ms per token (median, p90; each step closed by a sync), decode tokens/s,
+   the decode loop timed as one window with one sync, peak memory, the
+   device's busy share of one profiled decode step; the bf16 prefill's logits
+   against the cache-free forward over the same prompt within ``_tol``
+   (GPT-2) or ``_rec_tol`` (RWKV-6); the bf16 drift of every decode step
+   against the cache-free forward (reported, not gated); fp32 prefill and
+   7 forced decode steps against the cache-free fp32 forward at the same
+   tolerances, and planted faults (GPT-2: the cache written one slot off;
+   RWKV-6: ``x_last`` or the state not carried) that must fail that check;
 4. a reference check on a small input: each reduced model's loss and
    gradient norm through the kernels on the card against the plain
    versions on the CPU;
@@ -55,7 +70,9 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    also the device time (the kernels' own durations in a profiler trace)
    beside the CUDA-event window, which holds the host's dispatch too, and
    for the decode the library call ``torch.mul(codes, scales[:, None])``
-   leaf by leaf.
+   leaf by leaf; the decode shapes of attention (beside
+   ``scaled_dot_product_attention``) and WKV6 as device time per launch,
+   one input set per layer.
 
     python3 chip_smoke.py --baseline DIR
 
@@ -64,14 +81,16 @@ per-leaf encode and decode built from the checkout at DIR (an earlier
 commit, unpacked), on the same inputs, in turns with this checkout's
 (baseline, kernel, kernel, baseline).
 
-It prints one JSON line per kernel, per path, for the self-healing phase
-and for the launcher, the ``kernels`` line (launches summed over the paths,
-the self-healing replay and the launcher's in-process runs), the card's
+It prints one JSON line per kernel, per path, for the self-healing phase,
+for the launcher and per serving run, the ``kernels`` line (launches summed
+over the paths, the self-healing replay, the launcher's in-process runs and
+the serving runs), the card's
 name and power limit from ``nvidia-smi``, and last the line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository around it, it exits non-zero and prints
 no result.
 """
 import bisect
+import contextlib
 import gc
 import json
 import math
@@ -155,6 +174,21 @@ SSD_BF16_EDGES = [
 PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b"]
 STEPS = (3, 2, 2)
 MAIN_BATCHES = (PER_DEVICE_BATCH * 2, PER_DEVICE_BATCH * 3)
+# The serving runs (phase 3d), one per served family at full width and
+# depth: batch 8, a 1024-token prompt, 128 greedy new tokens (the prefill's
+# and 127 decode steps'), and so a cache of 1152 positions.
+SERVE_PATHS = ("gpt2", "rwkv6-1.6b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 128
+SERVE_CACHE = SERVE_PROMPT + SERVE_TOKENS
+# Teacher-forced decode steps after the prefill in the fp32 check.
+FP32_DECODE_STEPS = 7
+# The decode attention's q_offsets held against the plain version: the
+# first rows of the first and second 64-key tiles, the tile edge, the
+# middle, the cache's last row.
+DECODE_Q_OFFSETS = (0, 1, 63, 64, 511, SERVE_CACHE - 1)
+# The decode WKV6's sequence lengths: one step, two, and either side of the
+# kernel's 32-step staging.
+DECODE_WKV_STEPS = (1, 2, 31, 33)
 
 
 def tol(dtype):
@@ -366,21 +400,46 @@ def main_shapes():
     return shapes
 
 
+def serve_attention_cases():
+    """``(label, case, rope_theta, q_offset)`` at the shapes GPT-2's
+    serving run gives the kernel: the prefill of the prompt into the cache
+    (Sq 1024 over Skv 1152, 128 rows masked), the decode over the whole
+    cache at each of ``DECODE_Q_OFFSETS`` and over a ragged Skv of 1000,
+    bf16 as the run gives them."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gpt2")
+    B, H, K, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def case(Sq, Skv):
+        return (B, Sq, Skv, H, K, hd, "causal", 0, 0, cfg.attn_softcap,
+                torch.bfloat16)
+
+    return ([("gpt2 serve prefill", case(SERVE_PROMPT, SERVE_CACHE), 0.0, 0)]
+            + [(f"gpt2 serve decode q_offset={o}", case(1, SERVE_CACHE), 0.0, o)
+               for o in DECODE_Q_OFFSETS]
+            + [("gpt2 serve decode ragged Skv", case(1, 1000), 0.0, 999)])
+
+
 def attention_cases():
-    """``(label, case, rope_theta)``: the main paths' shapes, then the JAX
-    sweep and the bf16 edges; ``case`` in ATTN_SWEEP's layout."""
+    """``(label, case, rope_theta, q_offset)``: the main paths' shapes, the
+    serving run's, then the JAX sweep and the bf16 edges; ``case`` in
+    ATTN_SWEEP's layout."""
     cases = [(f"{path} B={B}", (B, SEQ, SEQ, H, K, hd, "causal", 0, 0, softcap,
-                                torch.bfloat16), theta)
+                                torch.bfloat16), theta, 0)
              for path, (B, H, K, hd, softcap, theta)
              in main_shapes()["flash_attention"]]
-    return (cases + [(f"sweep {i}", c, 0.0) for i, c in enumerate(ATTN_SWEEP)]
-            + [(f"sweep bf16 {i}", c, 0.0) for i, c in enumerate(ATTN_BF16_EDGES)])
+    return (cases + serve_attention_cases()
+            + [(f"sweep {i}", c, 0.0, 0) for i, c in enumerate(ATTN_SWEEP)]
+            + [(f"sweep bf16 {i}", c, 0.0, 0) for i, c in enumerate(ATTN_BF16_EDGES)])
 
 
-def attention_case(fa, gen, case, theta=0.0):
+def attention_case(fa, gen, case, theta=0.0, q_offset=0):
     """The kernel against ``attention_plain`` at ``_tol`` on one case; q and
     k go through RoPE first where ``theta`` is given, as in a RoPE config's
-    attention. Returns max |kernel - plain|."""
+    attention; the queries sit at ``q_offset`` onwards. Every key row holds
+    data, so the rows the mask removes are random, not zero. Returns max
+    |kernel - plain|."""
     from repro_torch.models.layers import MaskSpec, rope
 
     B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
@@ -388,13 +447,14 @@ def attention_case(fa, gen, case, theta=0.0):
     k = torch.randn((B, Skv, K, d), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, Skv, K, d), generator=gen, device="cuda").to(dt)
     if theta:
-        q = rope(q, torch.arange(Sq, device="cuda"), theta)
+        q = rope(q, q_offset + torch.arange(Sq, device="cuda"), theta)
         k = rope(k, torch.arange(Skv, device="cuda"), theta)
     out = fa.flash_attention_kernel(q, k, v, scale=d ** -0.5, softcap=softcap,
-                                    kind=kind, window=window, prefix_len=prefix)
+                                    kind=kind, window=window, prefix_len=prefix,
+                                    q_offset=q_offset)
     ref = fa.attention_plain(q, k, v, MaskSpec(kind, window=window,
                                                prefix_len=prefix),
-                             scale=d ** -0.5, softcap=softcap)
+                             scale=d ** -0.5, softcap=softcap, q_offset=q_offset)
     torch.testing.assert_close(out.float(), ref.float(), **tol(dt))
     return float((out.float() - ref.float()).abs().max())
 
@@ -403,13 +463,13 @@ def check_attention(fa, gen):
     """Every case of ``attention_cases``; returns the largest error at the
     main paths' shapes."""
     main_err = 0.0
-    for label, case, theta in attention_cases():
-        err = attention_case(fa, gen, case, theta)
+    for label, case, theta, q_offset in attention_cases():
+        err = attention_case(fa, gen, case, theta, q_offset)
         if not label.startswith("sweep"):
             main_err = max(main_err, err)
             log(f"attention {label} {case[:6]} bf16 causal"
-                f"{', RoPE' if theta else ''}: max |kernel - plain| {err:.3e} "
-                f"(rtol/atol 2e-2)")
+                f"{', RoPE' if theta else ''}, q_offset {q_offset}: max "
+                f"|kernel - plain| {err:.3e} (rtol/atol 2e-2)")
     log(f"attention: {len(ATTN_SWEEP)} sweep cases and {len(ATTN_BF16_EDGES)} "
         f"bf16 edges within _tol")
     return main_err
@@ -469,7 +529,13 @@ def wkv6_cases():
       (logged), where the sequential kernel does not;
     * bf16 r/k/v over the clip range, against chunk 64.
 
-    Then the JAX sweep with initial states, at chunk 64."""
+    Then the RWKV-6 serving run's decode, batch 8 at each of
+    ``DECODE_WKV_STEPS`` steps from a nonzero state (fp32, as the run gives
+    them), with the init's decays against the plain version and with decays
+    over the clip range against it and the fp64 oracle; and the JAX sweep
+    with initial states, at chunk 64."""
+    from repro_torch.configs import get_config
+
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for path, shape in main_shapes()["wkv6"]:
@@ -477,6 +543,12 @@ def wkv6_cases():
         cases += [(label, (*shape, "init", f32, False, 64, False)),
                   (label, (*shape, (-8.0, 3.0), f32, False, 16, True)),
                   (label, (*shape, (-8.0, 3.0), bf16, False, 64, False))]
+    cfg = get_config("rwkv6-1.6b")
+    for S in DECODE_WKV_STEPS:
+        shape = (SERVE_BATCH, S, cfg.n_heads, cfg.head_dim)
+        label = f"rwkv6-1.6b serve decode S={S}"
+        cases += [(label, (*shape, "init", f32, True, 64, False)),
+                  (label, (*shape, (-8.0, 3.0), f32, True, 16, True))]
     return cases + [(f"sweep {i}", (B, S, H, hd, (lo, 0.5), dt, True, 64, False))
                     for i, (B, S, H, hd, lo, dt) in enumerate(WKV_SWEEP)]
 
@@ -515,9 +587,10 @@ def check_wkv6(W, gen):
         err = wkv6_case(W, gen, case)
         if not label.startswith("sweep"):
             main_err = max(main_err, err)
-            B, S, H, hd, decay, dt, _, chunk, _ = case
+            B, S, H, hd, decay, dt, with_state, chunk, _ = case
             log(f"wkv6 {label} {(B, S, H, hd)} {str(dt)[6:]} r/k/v, decays "
-                f"{decay}: max |kernel - plain (chunk {chunk})| {err:.3e}")
+                f"{decay}{', from a state' if with_state else ''}: max "
+                f"|kernel - plain (chunk {chunk})| {err:.3e}")
     torch.cuda.synchronize()
     log(f"wkv6: {len(WKV_SWEEP)} sweep cases within _rec_tol")
     return main_err
@@ -1247,6 +1320,327 @@ def replica_tier(trainer, name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3d: serving.
+# ---------------------------------------------------------------------------
+
+
+def serve_tol(cfg, dtype):
+    """The fixed tolerance of a serving check, tests/test_kernels.py's own:
+    ``_tol`` for the dense family (attention); ``_rec_tol`` for the ssm
+    family, whose decode runs WKV6 one step per launch where the cache-free
+    forward runs every step in one launch, so its fp32 sums come in another
+    order."""
+    return tol(dtype) if cfg.family == "dense" else rec_tol(dtype)
+
+
+#: Faults planted in the serving path, per family; each must fail the fp32
+#: check of cached against cache-free logits.
+SERVE_FAULTS = {"dense": ("cache written one slot off",),
+                "ssm": ("x_last not carried", "state not carried")}
+
+
+@contextlib.contextmanager
+def planted_fault(fault):
+    """Plant ``fault`` (None or one of ``SERVE_FAULTS``) in the port's
+    serving path for the duration: the KV cache written one row late (both
+    the prefill's and each decode step's write); the token shift ignoring
+    the carried ``x_last``; the WKV6 call ignoring the carried state."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv6
+
+    if fault is None:
+        yield
+        return
+    if fault == "cache written one slot off":
+        module, name = L, "_write_cache"
+        orig = L._write_cache
+
+        def faulty(cache, new, pos):
+            return orig(cache, new, pos + 1)
+    elif fault == "x_last not carried":
+        module, name = rwkv6, "_shift"
+        orig = rwkv6._shift
+
+        def faulty(x, x_last=None):
+            return orig(x)
+    elif fault == "state not carried":
+        module, name = ops, "wkv6"
+        orig = ops.wkv6
+
+        def faulty(r, k, v, lw, u, state=None, **kw):
+            return orig(r, k, v, lw, u, None, **kw)
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    setattr(module, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def serve_fp32(cfg, params, tokens, n_prompt, cache_len):
+    """Serving in fp32, teacher-forced: prefill ``tokens[:, :n_prompt]``
+    into an fp32 cache of ``cache_len`` positions (dense) or from a zero
+    state (ssm), then decode the other tokens one per step, each at its
+    position. Returns the logits at positions ``n_prompt - 1`` onwards, (B,
+    n - n_prompt + 1, V) fp32."""
+    from repro_torch.models import rwkv6, transformer
+
+    B, n = tokens.shape
+    f32 = torch.float32
+    with torch.no_grad():
+        if cfg.family == "dense":
+            cache = transformer.make_cache(cfg, B, cache_len, f32, tokens.device)
+
+            def step(toks, pos, cache):
+                return transformer.forward(cfg, params, toks, cache=cache,
+                                           cache_pos=pos, last_only=True,
+                                           dtype=f32)[:2]
+        else:
+            cache = rwkv6.make_state(cfg, B, tokens.device)
+
+            def step(toks, pos, state):
+                return rwkv6.forward(cfg, params, toks, state=state,
+                                     last_only=True, dtype=f32)[:2]
+
+        logits, cache = step(tokens[:, :n_prompt], 0, cache)
+        out = [logits[:, -1]]
+        for pos in range(n_prompt, n):
+            logits, cache = step(tokens[:, pos:pos + 1], pos, cache)
+            out.append(logits[:, -1])
+    return torch.stack(out, dim=1)
+
+
+def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len):
+    """fp32 cached against cache-free logits: ``serve_fp32`` against the
+    cache-free fp32 forward over all of ``tokens``, at every position from
+    the prompt's last on, within ``serve_tol(cfg, fp32)``; then each of the
+    family's ``SERVE_FAULTS`` planted, each of which must leave that
+    tolerance. Raises if either fails; returns the errors."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_api import _family_forward
+
+    f32 = torch.float32
+    with torch.no_grad():
+        hidden, _ = _family_forward(cfg)(cfg, params, tokens,
+                                         return_hidden=True, dtype=f32)
+        want = L.unembed(params["embed"], hidden[:, n_prompt - 1:], cfg)
+    del hidden
+    t = serve_tol(cfg, f32)
+
+    def run(fault):
+        with planted_fault(fault):
+            got = serve_fp32(cfg, params, tokens, n_prompt, cache_len)
+        d = (got - want).abs()
+        return float(d.max()), int((d > t["atol"] + t["rtol"] * want.abs()).sum())
+
+    err, bad = run(None)
+    out = {"tolerance": t, "positions": want.shape[1], "n_logits": want.numel(),
+           "max_abs_logit": float(want.abs().max()), "max_abs_diff": err,
+           "outside": bad, "faults": {}}
+    if bad:
+        raise AssertionError(f"{cfg.name}: fp32 cached logits differ from the "
+                             f"cache-free forward by up to {err:.3e}, {bad} "
+                             f"outside {t}")
+    for fault in SERVE_FAULTS[cfg.family]:
+        f_err, f_bad = run(fault)
+        out["faults"][fault] = {"max_abs_diff": f_err, "outside": f_bad}
+        if not f_bad:
+            raise AssertionError(f"{cfg.name}: the planted fault {fault!r} "
+                                 f"passes the fp32 check (max |diff| {f_err:.3e})")
+    return out
+
+
+def serve_path(ops, name):
+    """One served family at full width and depth through the serving
+    launcher's ``generate`` (``Model.prefill`` and ``Model.decode_step``):
+    a batch of ``SERVE_BATCH`` random prompts of ``SERVE_PROMPT`` tokens,
+    ``SERVE_TOKENS`` greedy new tokens, a cache of ``SERVE_CACHE``
+    positions, bf16 as served; params from the port's init, seeded. Each
+    decode step is closed by a sync and timed (``generate(stream=True)``).
+    The launch counters are zeroed just before the run and read just after
+    it, and held to the exact count (each layer's kernel once in the
+    prefill and once per decode step). Then, the counts read:
+
+    * the same request again, its decode loop timed as one window closed
+      by one sync, as the JAX launcher times it;
+
+    * the bf16 prefill's logits against the last position of the bf16
+      cache-free forward over the same prompt, within ``serve_tol``
+      (gated);
+    * each step's served logits against the cache-free bf16 forward over
+      the prompt and the generated tokens, reported per step, not gated;
+      beside it the same forward's logits at the prompt's last position
+      against the prompt-only forward's (the same positions, only the
+      sequence length differs);
+    * fp32 prefill + ``FP32_DECODE_STEPS`` forced decode steps against the
+      cache-free fp32 forward (``serve_fp32_check``, gated), with the
+      family's planted faults;
+    * one profiled decode step: device busy time and its share of the
+      median step.
+
+    Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_api import _family_forward
+
+    cfg = get_config(name)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in T.leaves(params))
+    B, P = SERVE_BATCH, SERVE_PROMPT
+    host = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=host).cuda()
+    forced = torch.randint(0, cfg.vocab, (B, FP32_DECODE_STEPS), generator=host).cuda()
+    # A warm-up request (a prefill and one decode step) first, so that the
+    # timed one reads steady times, not the first call's library set-up.
+    generate(model, params, prompts, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    params_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run = generate(model, params, prompts, SERVE_TOKENS, stream=True,
+                   keep_logits=True)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    expected = dict.fromkeys(ops.launches, 0)
+    expected["flash_attention" if cfg.family == "dense" else "wkv6"] = (
+        cfg.n_layers * SERVE_TOKENS)
+    if launches != expected:
+        raise AssertionError(f"serving {name}: launches {launches}, expected {expected}")
+    served = torch.stack(run.logits, dim=1)  # (B, SERVE_TOKENS, V) bf16
+    if (served.shape != (B, SERVE_TOKENS, cfg.vocab)
+            or run.tokens.shape != (B, SERVE_TOKENS)
+            or not bool(torch.isfinite(served).all())
+            or not bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all())):
+        raise AssertionError(f"serving {name}: logits {tuple(served.shape)}, "
+                             f"tokens {tuple(run.tokens.shape)}, finite "
+                             f"{bool(torch.isfinite(served).all())}")
+    window = generate(model, params, prompts, SERVE_TOKENS).decode_ms
+    steps = np.array(run.step_ms)
+    summary = {
+        "model": name, "n_params": n_params, "batch": B, "prompt": P,
+        "new_tokens": SERVE_TOKENS, "cache_len": SERVE_CACHE,
+        "prefill_ms": run.prefill_ms,
+        "decode_ms_median": float(np.median(steps)),
+        "decode_ms_p90": float(np.percentile(steps, 90)),
+        "decode_ms_min": float(steps.min()), "decode_ms_max": float(steps.max()),
+        "decode_steps": len(steps), "decode_ms_sum": float(steps.sum()),
+        "decode_tokens_per_s": B * len(steps) / (steps.sum() / 1e3),
+        "decode_window_ms": window,
+        "decode_window_ms_per_token": window / len(steps),
+        "decode_window_tokens_per_s": B * len(steps) / (window / 1e3),
+        "wall_s": wall, "params_gb": params_gb, "peak_mem_gb": peak / 1e9,
+        "launches": launches,
+    }
+
+    # The bf16 prefill against the cache-free forward over the same prompt.
+    fwd = _family_forward(cfg)
+    t = serve_tol(cfg, torch.bfloat16)
+    with torch.no_grad():
+        hidden, _ = fwd(cfg, params, prompts, return_hidden=True)
+        ref_prefill = L.unembed(params["embed"], hidden[:, -1], cfg)
+        del hidden
+        full = torch.cat([prompts, run.tokens[:, :-1]], dim=1)
+        hidden, _ = fwd(cfg, params, full, return_hidden=True)
+        ref = L.unembed(params["embed"], hidden[:, P - 1:], cfg)
+        del hidden
+    d_prefill = (served[:, 0].float() - ref_prefill.float()).abs()
+    prefill_bad = int((d_prefill > t["atol"] + t["rtol"] * ref_prefill.float().abs()).sum())
+    d = (served.float() - ref.float()).abs()
+    summary["bf16_prefill"] = {
+        "tolerance": t, "max_abs_diff": float(d_prefill.max()),
+        "outside": prefill_bad, "max_abs_logit": float(ref_prefill.abs().max())}
+    summary["bf16_drift"] = {
+        "max_abs_diff_per_step": [float(x) for x in d.amax(dim=(0, 2))],
+        "outside": int((d > t["atol"] + t["rtol"] * ref.float().abs()).sum()),
+        "n_logits": d.numel(),
+        "greedy_equal": int((ref.argmax(-1) == run.tokens).sum()),
+        "greedy_compared": run.tokens.numel(),
+        "same_positions_longer_sequence": float(
+            (ref[:, 0].float() - ref_prefill.float()).abs().max())}
+    del d, d_prefill, ref, served
+    if prefill_bad:
+        raise AssertionError(f"serving {name}: bf16 prefill logits differ from "
+                             f"the cache-free forward over the same prompt by up "
+                             f"to {summary['bf16_prefill']['max_abs_diff']:.4f}, "
+                             f"{prefill_bad} outside {t}")
+
+    # fp32 cached against cache-free, with the planted faults.
+    t0 = time.perf_counter()
+    summary["fp32_check"] = serve_fp32_check(
+        cfg, params, torch.cat([prompts, forced], dim=1), P, SERVE_CACHE)
+    summary["fp32_check"]["s"] = time.perf_counter() - t0
+
+    # One profiled decode step, from a fresh prefill and one warm step.
+    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=SERVE_CACHE)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    logits, cache = model.decode_step(params, {"tokens": tok, "pos": P, "cache": cache})
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, {"tokens": tok, "pos": P + 1,
+                                                   "cache": cache})
+        torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    rows, _ = device_times(prof.profiler.kineto_results.events(), ())
+    busy = sum(r[0] for r in rows)
+    summary["profiled_decode"] = {
+        "wall_ms": prof_ms, "device_busy_ms": busy,
+        "device_events": sum(r[1] for r in rows),
+        "busy_share_of_median_step": busy / summary["decode_ms_median"],
+        "busy_share_of_window_step": busy / summary["decode_window_ms_per_token"]}
+    del logits, cache
+
+    fp = summary["fp32_check"]
+    log(f"serving {name} ({n_params} params) at batch {B}, prompt {P}, "
+        f"{SERVE_TOKENS} new tokens: prefill {run.prefill_ms:.1f} ms; decode "
+        f"median {summary['decode_ms_median']:.2f} ms/token (p90 "
+        f"{summary['decode_ms_p90']:.2f}); {summary['decode_tokens_per_s']:.0f} "
+        f"tokens/s over {len(steps)} steps, each closed by a sync; the same "
+        f"steps timed as one window closed by one sync: "
+        f"{summary['decode_window_ms_per_token']:.2f} ms/token, "
+        f"{summary['decode_window_tokens_per_s']:.0f} tokens/s; peak "
+        f"{peak / 1e9:.2f} GB; launches "
+        f"{json.dumps(launches)}; a profiled "
+        f"decode step: device busy {busy:.3f} ms, "
+        f"{summary['profiled_decode']['busy_share_of_median_step']:.1%} of the "
+        f"median step, "
+        f"{summary['profiled_decode']['busy_share_of_window_step']:.1%} of the "
+        f"window's per-token time")
+    log(f"  bf16 prefill vs the cache-free forward over the same prompt: max "
+        f"|diff| {summary['bf16_prefill']['max_abs_diff']:.4f} (within {t}); "
+        f"over the decode steps (not gated) up to "
+        f"{max(summary['bf16_drift']['max_abs_diff_per_step']):.4f}, "
+        f"{summary['bf16_drift']['outside']} of {summary['bf16_drift']['n_logits']} "
+        f"outside; the longer cache-free forward at the prompt's last position "
+        f"vs the prompt-only one: "
+        f"{summary['bf16_drift']['same_positions_longer_sequence']:.4f}")
+    log(f"  fp32 prefill + {FP32_DECODE_STEPS} forced decode steps vs the "
+        f"cache-free forward: max |diff| {fp['max_abs_diff']:.3e} (within "
+        f"{fp['tolerance']}); planted faults: "
+        + "; ".join(f"{k} {v['max_abs_diff']:.3e}, {v['outside']} outside"
+                    for k, v in fp["faults"].items()))
+    log(json.dumps({"serving": summary}))
+    del params, model, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_step(trainer, loader, ops):
     """Where one steady step's device time goes: kernels by device time
     (torch.profiler), and the device's busy share of the step's wall time;
@@ -1525,6 +1919,112 @@ def time_ssd(SD, gen, shape):
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
+#: Cycles of the device-side wait ``_per_launch`` queues ahead of the
+#: launches it times: about 0.2 s at the H100's clocks.
+QUEUE_WAIT_CYCLES = 400_000_000
+
+
+def _per_launch(fn, sets, reps=5):
+    """``fn`` over every input set of ``sets``, ``reps`` passes, as a decode
+    step runs a kernel once per layer, each on its own layer's tensors (so
+    each launch finds its inputs outside the L2 cache). Returns (device ms
+    per launch, the CUDA-event window per launch, host dispatch included).
+
+    For the device time the passes queue up behind a device-side wait
+    (``torch.cuda._sleep``): the events then time the launches back to
+    back, not the host that issues them. If the host's enqueue outlasts the
+    wait, the device time is None (not measured)."""
+    def one_pass():
+        for args in sets:
+            fn(*args)
+
+    one_pass()
+    torch.cuda.synchronize()
+    wait, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    wait.record()
+    torch.cuda._sleep(QUEUE_WAIT_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_pass()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    device = start.elapsed_time(end) / (reps * len(sets))
+    if enqueue_ms >= wait.elapsed_time(start):
+        device = None
+    return device, cuda_ms(one_pass, reps, 1) / len(sets)
+
+
+def time_decode_attention(fa, MaskSpec, gen):
+    """The bf16 kernel at GPT-2's decode shape, one query row over the
+    whole cache at the middle of the decode's positions, on one cache per
+    layer; beside it the plain version and ``scaled_dot_product_attention``
+    with the same mask (checked against the plain version at ``_tol``).
+    The bound counts the cache rows the mask admits."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gpt2")
+    B, H, K, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q_offset = SERVE_PROMPT + SERVE_TOKENS // 2
+    bf16 = torch.bfloat16
+    sets = [(torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(bf16),
+             torch.randn((B, SERVE_CACHE, K, hd), generator=gen, device="cuda").to(bf16),
+             torch.randn((B, SERVE_CACHE, K, hd), generator=gen, device="cuda").to(bf16))
+            for _ in range(cfg.n_layers)]
+    scale = hd ** -0.5
+    spec = MaskSpec("causal")
+    mask = (torch.arange(SERVE_CACHE, device="cuda") <= q_offset)[None, None, None, :]
+
+    def kernel(q, k, v):
+        return fa.flash_attention_kernel(q, k, v, scale=scale, q_offset=q_offset)
+
+    def plain(q, k, v):
+        return fa.attention_plain(q, k, v, spec, scale=scale, q_offset=q_offset)
+
+    gqa = {"enable_gqa": True} if H != K else {}
+
+    def library(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, scale=scale, **gqa).transpose(1, 2)
+
+    q, k, v = sets[0]
+    torch.testing.assert_close(library(q, k, v).float(), plain(q, k, v).float(),
+                               **tol(bf16))
+    ms, window = _per_launch(kernel, sets)
+    plain_ms, _ = _per_launch(plain, sets, reps=1)
+    library_ms, library_window = _per_launch(library, sets)
+    n_kv = q_offset + 1
+    nbytes = 2 * (B * H * hd + 2 * B * n_kv * K * hd + B * H * hd)
+    flops = 4 * B * H * hd * n_kv
+    return dict(shape=[B, 1, SERVE_CACHE, H, K, hd], q_offset=q_offset,
+                ms=ms, window_ms=window, plain_ms=plain_ms,
+                library_ms=library_ms, library_window_ms=library_window,
+                bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
+
+
+def time_decode_wkv6(W, gen):
+    """The kernel at RWKV-6's decode shape, one step from a carried state,
+    fp32 r/k/v as the run gives them, on one state per layer; beside it the
+    plain version. No library call computes the recurrence."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("rwkv6-1.6b")
+    B, H, hd = SERVE_BATCH, cfg.n_heads, cfg.head_dim
+    sets = [wkv6_inputs(gen, B, 1, H, hd, torch.float32, decay="init", state=True)
+            for _ in range(cfg.n_layers)]
+    ms, window = _per_launch(W.wkv6_kernel, sets)
+    plain_ms, _ = _per_launch(lambda *a: W.wkv6_plain(*a, chunk=64), sets, reps=1)
+    n = B * H * hd
+    # r, k, v, lw read, out written; u read; the state read and written.
+    nbytes = 5 * 4 * n + 4 * H * hd + 2 * 4 * B * H * hd * hd
+    flops = 5 * n * hd
+    return dict(shape=[B, 1, H, hd], ms=ms, window_ms=window,
+                plain_ms=plain_ms, library_ms=None,
+                bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
+
+
 def open_baseline(csrc):
     """The kernel library built from another checkout's ``csrc`` (same C
     interface), with the entry points ``time_baseline*`` call."""
@@ -1747,8 +2247,14 @@ def main():
         launches[k] += n
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"launches over the three paths, the self-healing replay and the "
-        f"launcher: {json.dumps(launches)}")
+    # Phase 3d: serving, its launches counted like a path's.
+    t0 = time.perf_counter()
+    for name in SERVE_PATHS:
+        for k, n in serve_path(ops, name).items():
+            launches[k] += n
+    log(f"serving phase: {time.perf_counter() - t0:.1f} s")
+    log(f"launches over the three paths, the self-healing replay, the "
+        f"launcher and the serving runs: {json.dumps(launches)}")
 
     # Phase 4: small-input references.
     for name in PATHS:
@@ -1762,6 +2268,11 @@ def main():
     if old is not None:
         for name, t in time_baseline(old, gen, shapes).items():
             times[name]["baseline_ms"] = t["baseline_ms"]
+    for name, t in (("flash_attention", time_decode_attention(fa, MaskSpec, gen)),
+                    ("wkv6", time_decode_wkv6(W, gen))):
+        bound_ms, bound_by = t.pop("bound")
+        log(json.dumps({"kernel_decode": name, **t, "bound_ms": bound_ms,
+                        "bound_by": bound_by}))
     rows = [
         ("shard_encode", "src/repro_torch/csrc/shard_codec.cu",
          "src/repro/kernels/shard_codec.py:46"),

@@ -9,7 +9,7 @@ Initialisers take an explicit ``torch.Generator`` and device; they cannot
 reproduce ``jax.random`` draws, so tests convert JAX-initialised states
 instead (``repro_torch.convert``).
 
-Not ported yet: KV caches, cross-attention and the swiglu/geglu MLPs.
+Not ported yet: cross-attention (``static_kv``) and the swiglu/geglu MLPs.
 """
 from __future__ import annotations
 
@@ -144,11 +144,24 @@ def init_attention(gen, cfg, device, d_in=None):
     }
 
 
+def _write_cache(cache, new, pos: int):
+    """Write ``new`` (B, S, K, hd) into ``cache`` (B, Smax, K, hd) at rows
+    ``pos:pos + S``, in place."""
+    cache[:, pos:pos + new.shape[1]].copy_(new)
+
+
 def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
-                       is_local=None):
-    """Self-attention sublayer with no cache. x: (B, S, d) normed input;
-    ``positions`` (S,) or (B, S) feed RoPE when ``cfg.positions == "rope"``.
-    Returns (B, S, d)."""
+                       cache_kv=None, cache_pos=None, is_local=None):
+    """Self-attention sublayer. x: (B, S, d) normed input; ``positions``
+    (S,) or (B, S) feed RoPE when ``cfg.positions == "rope"``.
+
+    ``cache_kv``: (k, v) of shape (B, Smax, K, hd). This step's K/V are
+    written into them in place at ``cache_pos`` (an int); a prefill that
+    fills the whole cache (S == Smax) attends over the fresh K/V, anything
+    else over the whole cache with ``q_offset = cache_pos`` (causality
+    masks the rows not written yet). Writing past ``Smax`` raises; the JAX
+    reference clamps the write start instead. Returns ((B, S, d), cache_kv,
+    the same tensors, or None without a cache)."""
     B, S, _ = x.shape
     dt = x.dtype
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -160,10 +173,25 @@ def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
             raise ValueError("RoPE attention needs positions")
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q_offset = 0
+    if cache_kv is not None:
+        ck, cv = cache_kv
+        smax = ck.shape[1]
+        if cache_pos is None:
+            raise ValueError("cache_kv requires cache_pos")
+        cache_pos = int(cache_pos)
+        if cache_pos < 0 or cache_pos + S > smax:
+            raise ValueError(f"KV cache overflow: {S} rows at position "
+                             f"{cache_pos} do not fit a cache of {smax}")
+        _write_cache(ck, k.to(ck.dtype), cache_pos)
+        _write_cache(cv, v.to(cv.dtype), cache_pos)
+        if S != smax:
+            k, v = ck.to(dt), cv.to(dt)
+            q_offset = cache_pos
     scale = cfg.query_scale if cfg.query_scale else 1.0 / math.sqrt(hd)
     o = blocked_attention(q, k, v, spec, scale=scale, softcap=cfg.attn_softcap,
-                          q_offset=0, is_local=is_local)
-    return o.reshape(B, S, H * hd) @ params["wo"].to(dt)
+                          q_offset=q_offset, is_local=is_local)
+    return o.reshape(B, S, H * hd) @ params["wo"].to(dt), cache_kv
 
 
 # ---------------------------------------------------------------------------

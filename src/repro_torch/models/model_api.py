@@ -7,11 +7,20 @@
   * ``loss_fn(params, batch)`` → (loss, metrics)
   * ``make_train_step()`` → ``train_step(state, batch) -> (state, metrics)``
     (AdamW + global-norm clipping)
+  * ``prefill(params, batch)`` → (logits, cache)
+  * ``decode_step(params, batch)`` → (logits, cache)
+  * ``input_specs(cell)`` / ``cache_specs(batch, max_len)`` — meta-device
+    stand-ins (no memory).
 
-Train batches are ``{"tokens": (B, S+1)}`` integer tokens. There is no
-``use_pallas`` switch: attention, WKV6 and SSD always run the port's
-kernels on CUDA. Serving (``prefill``/``decode_step``) and the moe, vlm and
-encdec families are not ported yet.
+Batch layouts (integer tokens):
+  train:   {"tokens": (B, S+1)}
+  prefill: {"tokens": (B, S)}
+  decode:  {"tokens": (B, 1), "pos": int or 0-d tensor, "cache": tree}
+
+There is no ``use_pallas`` switch: attention, WKV6 and SSD always run the
+port's kernels on CUDA. Serving runs for the dense and ssm families under
+``torch.no_grad()``; a dense cache is written in place. Not ported yet:
+serving the hybrid family (Zamba2), and the moe, vlm and encdec families.
 """
 from __future__ import annotations
 
@@ -21,13 +30,15 @@ from typing import Optional
 import torch
 
 from repro_torch import tree as T
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6, transformer, zamba2
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 
 AUX_COEF = 0.01
+#: families whose prefill and decode are ported.
+SERVED = ("dense", "ssm")
 #: family → (init, forward) of the ported families.
 _FAMILIES = {
     "dense": (transformer.init_transformer, transformer.forward),
@@ -89,6 +100,69 @@ class Model:
             return state, metrics
 
         return train_step
+
+    # ------------------------------------------------------------ serving
+    def _served(self):
+        if self.cfg.family not in SERVED:
+            raise NotImplementedError(
+                f"serving the {self.cfg.family} family is not ported yet "
+                f"(Zamba2 serving is the next slice, ROADMAP Queue 1 item 5)")
+
+    @torch.no_grad()
+    def prefill(self, params, batch, *, max_len: Optional[int] = None):
+        """Run the prompt ``batch["tokens"]`` (B, S) from an empty cache →
+        (last-position logits (B, 1, V), cache). The dense cache holds
+        ``max_len`` positions (default S, as in the JAX package, which
+        leaves no room to decode); the ssm state has no length."""
+        self._served()
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        B, S = tokens.shape
+        if cfg.family == "dense":
+            cache = transformer.make_cache(cfg, B, S if max_len is None else max_len,
+                                           device=self.device)
+            logits, cache, _ = transformer.forward(cfg, params, tokens, cache=cache,
+                                                   cache_pos=0, last_only=True)
+            return logits, cache
+        state = rwkv6.make_state(cfg, B, device=self.device)
+        logits, state, _ = rwkv6.forward(cfg, params, tokens, state=state,
+                                         last_only=True)
+        return logits, state
+
+    @torch.no_grad()
+    def decode_step(self, params, batch):
+        """batch: {"tokens": (B, 1), "pos": write position, "cache"} →
+        (logits (B, 1, V), cache). A dense cache is written in place and
+        returned; writing past its end raises. ``pos`` is unused by the ssm
+        family, whose state carries its own position."""
+        self._served()
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        if cfg.family == "dense":
+            logits, cache, _ = transformer.forward(
+                cfg, params, tokens, cache=batch["cache"], cache_pos=batch["pos"])
+            return logits, cache
+        logits, state, _ = rwkv6.forward(cfg, params, tokens, state=batch["cache"])
+        return logits, state
+
+    # ------------------------------------------------------------ specs
+    def input_specs(self, cell: ShapeCell):
+        """Meta-device stand-ins for every model input of this cell."""
+        B, S = cell.global_batch, cell.seq_len
+        i32 = torch.int32
+        if cell.kind == "train":
+            return {"tokens": torch.empty((B, S + 1), dtype=i32, device="meta")}
+        if cell.kind == "prefill":
+            return {"tokens": torch.empty((B, S), dtype=i32, device="meta")}
+        return {"tokens": torch.empty((B, 1), dtype=i32, device="meta"),
+                "pos": torch.empty((), dtype=i32, device="meta"),
+                "cache": self.cache_specs(B, S)}
+
+    def cache_specs(self, batch, max_len):
+        self._served()
+        if self.cfg.family == "dense":
+            return transformer.cache_specs(self.cfg, batch, max_len)
+        return rwkv6.state_specs(self.cfg, batch)
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:

@@ -15,9 +15,13 @@ activations of ``_ddlerp`` to fp32, so r, k, v, g and the decays are fp32
 on this path. A matmul of an fp32 activation with a bf16-cast weight
 computes in fp32, as ``jnp.matmul`` promotes (``_mm``).
 
-Not ported yet (serving): ``wkv6_decode``, the ``state``/``x_last``
-branches of ``time_mix``, ``channel_mix`` and ``forward``, ``make_state``
-and ``state_specs``.
+Serving: ``forward`` with ``state`` carries the WKV state (fp32) and each
+layer's last normed input to the time mix and the channel mix (``tm_x``,
+``cm_x``) across calls; a decode step runs the WKV6 kernel at S = 1 from
+the carried state, as the JAX forward runs its scan. The returned ``tm_x``
+and ``cm_x`` take the activations' dtype, as the JAX scan's outputs do;
+``make_state`` starts them in bf16. ``wkv6_decode`` is the plain
+single-token step, kept as the reference of that call.
 """
 from __future__ import annotations
 
@@ -41,6 +45,17 @@ def _mm(a, w, dt):
     w = w.to(dt)
     ct = torch.promote_types(a.dtype, w.dtype)
     return a.to(ct) @ w.to(ct)
+
+
+def wkv6_decode(r, k, v, lw, u, state):
+    """Single-token WKV. r,k,v,lw: (B, H, hd); state (B,H,hd,hd) fp32.
+    Returns (o (B,H,hd) fp32, new_state)."""
+    f32 = torch.float32
+    r, k, v, lw = (x.to(f32) for x in (r, k, v, lw))
+    kv = k[..., :, None] * v[..., None, :]  # (B,H,hd,hd)
+    o = torch.einsum("bhc,bhcd->bhd", r, u.to(f32)[None, :, :, None] * kv + state)
+    new_state = torch.exp(lw)[..., None] * state + kv
+    return o, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +107,12 @@ def init_rwkv6(cfg, gen: torch.Generator, device):
     }
 
 
-def _shift(x):
-    """Token shift: x_prev[t] = x[t-1]; the first slot is 0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _shift(x, x_last=None):
+    """Token shift: x_prev[t] = x[t-1]; the first slot from ``x_last``
+    (B, d) (decode) or 0."""
+    if x_last is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
 def _ddlerp(tm, x, prev):
@@ -124,11 +142,13 @@ def _group_norm(x, scale, bias, H, hd):
     return (xh.reshape(B, S, H * hd) * scale + bias).to(x.dtype)
 
 
-def time_mix(tm, x, cfg):
-    """x: (B, S, d) normed input. Returns (B, S, d) in x's dtype."""
+def time_mix(tm, x, cfg, state=None, x_last=None):
+    """x: (B, S, d) normed input; state: (B,H,hd,hd) fp32 or None; x_last:
+    (B, d) or None. Returns (out (B, S, d) in x's dtype, new_state, the last
+    position of x)."""
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    prev = _shift(x)
+    prev = _shift(x, x_last)
     xw, xk, xv, xr, xg = _ddlerp(tm, x, prev)
     dt = x.dtype
     r = _mm(xr, tm["wr"], dt).reshape(B, S, H, hd)
@@ -136,40 +156,81 @@ def time_mix(tm, x, cfg):
     v = _mm(xv, tm["wv"], dt).reshape(B, S, H, hd)
     g = F.silu(_mm(xg, tm["wg"], dt))
     lw = _decay(tm, xw).reshape(B, S, H, hd)
-    o, _ = kernel_ops.wkv6(r, k, v, lw, tm["u"])
+    o, new_state = kernel_ops.wkv6(r, k, v, lw, tm["u"], state=state)
     o = _group_norm(o.reshape(B, S, d), tm["gn_scale"], tm["gn_bias"], H, hd)
-    return _mm(o.to(dt) * g, tm["wo"], dt).to(dt)
+    return _mm(o.to(dt) * g, tm["wo"], dt).to(dt), new_state, x[:, -1]
 
 
-def channel_mix(cm, x):
-    prev = _shift(x)
+def channel_mix(cm, x, x_last=None):
+    """Returns (out, the last position of x)."""
+    prev = _shift(x, x_last)
     dt = x.dtype
     xk = x + (prev - x) * cm["mu_k"].to(dt)
     xr = x + (prev - x) * cm["mu_r"].to(dt)
     kk = torch.square(F.relu(xk @ cm["wk"].to(dt)))
-    return torch.sigmoid(xr @ cm["wr"].to(dt)) * (kk @ cm["wv"].to(dt))
+    return torch.sigmoid(xr @ cm["wr"].to(dt)) * (kk @ cm["wv"].to(dt)), x[:, -1]
 
 
-def _layer_body(cfg, x, lp):
+def _layer_body(cfg, x, lp, st=None, xl_tm=None, xl_cm=None):
+    """One layer; returns (x, (new WKV state, new tm_x, new cm_x))."""
     h = L.apply_norm(lp["ln1"], x, "layernorm")
-    x = x + time_mix(lp["tm"], h, cfg)
+    tmo, new_st, new_tm = time_mix(lp["tm"], h, cfg, state=st, x_last=xl_tm)
+    x = x + tmo
     h = L.apply_norm(lp["ln2"], x, "layernorm")
-    return x + channel_mix(lp["cm"], h)
+    cmo, new_cm = channel_mix(lp["cm"], h, xl_cm)
+    return x + cmo, (new_st, new_tm, new_cm)
 
 
-def forward(cfg, params, tokens, *, return_hidden: bool = False,
-            dtype=torch.bfloat16):
-    """Train/eval forward with no recurrent state: tokens (B, S) int64 →
-    (logits, aux_loss), or (final hidden states, aux_loss) with
-    ``return_hidden``."""
+def _train_body(cfg, x, lp):
+    return _layer_body(cfg, x, lp)[0]
+
+
+def forward(cfg, params, tokens, *, state=None, last_only: bool = False,
+            return_hidden: bool = False, dtype=torch.bfloat16):
+    """tokens (B, S) int64. ``state``: {"wkv": (L,B,H,hd,hd) fp32, "tm_x":
+    (L,B,d), "cm_x": (L,B,d)} or None.
+
+    Without a state → (logits, aux_loss), or (final hidden states,
+    aux_loss) with ``return_hidden``. With one → (logits, new_state, aux);
+    the given state is left as it was. ``last_only`` keeps the last
+    position's logits only."""
     x = L.embed_tokens(params["embed"], tokens, cfg, dtype=dtype)
-    for lp in T.unstack(params["layers"], cfg.n_layers):
-        if cfg.remat:
-            x = checkpoint(_layer_body, cfg, x, lp, use_reentrant=False)
+    layers = T.unstack(params["layers"], cfg.n_layers)
+    carried = []
+    for i, lp in enumerate(layers):
+        if state is not None:
+            x, ys = _layer_body(cfg, x, lp, state["wkv"][i], state["tm_x"][i],
+                                state["cm_x"][i])
+            carried.append(ys)
+        elif cfg.remat:
+            x = checkpoint(_train_body, cfg, x, lp, use_reentrant=False)
         else:
-            x = _layer_body(cfg, x, lp)
+            x = _train_body(cfg, x, lp)
     x = L.apply_norm(params["final_norm"], x, "layernorm")
+    if last_only:
+        x = x[:, -1:]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if return_hidden:
+    if return_hidden and state is None:
         return x, aux
-    return L.unembed(params["embed"], x, cfg), aux
+    logits = L.unembed(params["embed"], x, cfg)
+    if state is not None:
+        wkv, tm_x, cm_x = (torch.stack(t) for t in zip(*carried))
+        return logits, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}, aux
+    return logits, aux
+
+
+def make_state(cfg, batch, device=None):
+    """Zeroed recurrent state: the WKV state in fp32, ``tm_x``/``cm_x`` in
+    bf16, one slice per layer."""
+    H, hd, d, n = cfg.n_heads, cfg.head_dim, cfg.d_model, cfg.n_layers
+    return {
+        "wkv": torch.zeros((n, batch, H, hd, hd), dtype=torch.float32,
+                           device=device),
+        "tm_x": torch.zeros((n, batch, d), dtype=torch.bfloat16, device=device),
+        "cm_x": torch.zeros((n, batch, d), dtype=torch.bfloat16, device=device),
+    }
+
+
+def state_specs(cfg, batch):
+    """The state's shapes and dtypes as meta-device tensors (no memory)."""
+    return make_state(cfg, batch, device="meta")

@@ -1,15 +1,16 @@
-"""Decoder-only transformer, dense family with no cache, from
+"""Decoder-only transformer, dense family, from
 ``repro/models/transformer.py`` (``init_layer``, ``init_transformer``,
-``forward``).
+``forward`` with its KV-cache path, ``make_cache``, ``cache_specs``).
 
 Layer params are stacked on a leading axis exactly as in JAX, so state
 paths and shapes match the JAX pytree. ``lax.scan`` over the stack becomes
 a Python loop over its unbound slices; ``jax.checkpoint`` becomes
 ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` is set.
-Activations run in bf16.
+Activations run in bf16. The serving path writes the KV cache in place,
+one layer's slice at a time, and never remats.
 
-Not ported yet: MoE layers, gemma2's local/global alternation, the prefix-LM
-wrapper and KV caches.
+Not ported yet: MoE layers, gemma2's local/global alternation and the
+prefix-LM wrapper (``patch_embeds``, the cache's ``prefix`` rows).
 """
 from __future__ import annotations
 
@@ -46,10 +47,12 @@ def init_transformer(cfg, gen: torch.Generator, device):
     }
 
 
-def _layer_body(cfg, x, lp, spec, is_local, positions):
+def _layer_body(cfg, x, lp, spec, is_local, positions, cache_kv=None,
+                cache_pos=None):
     h = L.apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
-    attn_out = L.attention_sublayer(lp["attn"], h, cfg, spec,
-                                    positions=positions, is_local=is_local)
+    attn_out, _ = L.attention_sublayer(lp["attn"], h, cfg, spec,
+                                       positions=positions, cache_kv=cache_kv,
+                                       cache_pos=cache_pos, is_local=is_local)
     if cfg.post_norm:
         attn_out = L.apply_norm(lp["post_ln1"], attn_out, cfg.norm, cfg.norm_eps)
     x = x + attn_out
@@ -60,27 +63,60 @@ def _layer_body(cfg, x, lp, spec, is_local, positions):
     return x + ff
 
 
-def forward(cfg, params, tokens, *, return_hidden: bool = False,
-            dtype=torch.bfloat16):
-    """Train/eval forward: tokens (B, S) int64 → (logits, aux_loss), or
-    (final hidden states, aux_loss) with ``return_hidden``."""
+def forward(cfg, params, tokens, *, patch_embeds=None, cache=None,
+            cache_pos=None, last_only: bool = False,
+            return_hidden: bool = False, dtype=torch.bfloat16):
+    """Run the transformer on tokens (B, S) int64.
+
+    Train/eval: ``cache is None`` → (logits, aux_loss), or (final hidden
+    states, aux_loss) with ``return_hidden``.
+    Prefill: ``cache`` holds zeroed k, v of shape (L, B, Smax, K, hd) and
+      ``cache_pos`` is 0 → (logits, cache, aux).
+    Decode: tokens (B, 1), ``cache_pos`` the write position → the same.
+    The cache is written in place and returned as the same dict.
+    ``last_only`` keeps the last position's logits only."""
     if cfg.alt_local_global:
         raise NotImplementedError("local/global alternation is not ported yet")
+    if patch_embeds is not None:
+        raise NotImplementedError("the prefix-LM (vlm) path is not ported yet")
+    if cache is not None and cache_pos is None:
+        raise ValueError("cache requires cache_pos")
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)
+    offset = 0 if cache is None else int(cache_pos)
+    positions = offset + torch.arange(S, device=tokens.device)
     x = L.embed_tokens(params["embed"], tokens, cfg, positions=positions,
                        dtype=dtype)
     spec = MaskSpec(kind="causal", window=cfg.sliding_window, prefix_len=0)
     # A uniform window applies to every layer; none leaves is_local unset.
     is_local = True if cfg.sliding_window > 0 else None
-    for lp in T.unstack(params["layers"], cfg.n_layers):
-        if cfg.remat:
+    for i, lp in enumerate(T.unstack(params["layers"], cfg.n_layers)):
+        if cache is not None:
+            x = _layer_body(cfg, x, lp, spec, is_local, positions,
+                            (cache["k"][i], cache["v"][i]), offset)
+        elif cfg.remat:
             x = checkpoint(_layer_body, cfg, x, lp, spec, is_local, positions,
                            use_reentrant=False)
         else:
             x = _layer_body(cfg, x, lp, spec, is_local, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    if return_hidden:
+    if last_only:
+        x = x[:, -1:]
+    if return_hidden and cache is None:
         return x, aux
-    return L.unembed(params["embed"], x, cfg), aux
+    logits = L.unembed(params["embed"], x, cfg)
+    if cache is not None:
+        return logits, cache, aux
+    return logits, aux
+
+
+def make_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
+    """Zeroed KV cache {"k", "v"} of shape (L, batch, max_len, K, hd)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_specs(cfg, batch, max_len, dtype=torch.bfloat16):
+    """The cache's shapes and dtypes as meta-device tensors (no memory)."""
+    return make_cache(cfg, batch, max_len, dtype, device="meta")

@@ -64,7 +64,7 @@ def _shared_apply(sp, x, x0, cfg, positions):
     z = torch.cat([x, x0], dim=-1) @ sp["in_proj"].to(dt)
     h = L.apply_norm(sp["ln1"], z, cfg.norm)
     z = z + L.attention_sublayer(sp["attn"], h, cfg, MaskSpec("causal"),
-                                 positions=positions)
+                                 positions=positions)[0]
     h = L.apply_norm(sp["ln2"], z, cfg.norm)
     z = z + L.mlp_sublayer(sp["mlp"], h, cfg.mlp)
     return x + z

@@ -11,6 +11,7 @@ runs where only PyTorch is installed:
 import importlib.util
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,11 +38,15 @@ def _load_chip_smoke():
 chip_smoke = _load_chip_smoke()
 f32, bf16 = torch.float32, torch.bfloat16
 ATTN_CASES = chip_smoke.attention_cases() + [
-    # (B, Sq, Skv, H, K, hd, kind, window, prefix, softcap, dtype)
-    ("ragged", (1, 100, 100, 2, 2, 32, "causal", 0, 0, 0.0, f32), 0.0),
-    ("ragged cross", (1, 96, 200, 4, 2, 16, "full", 0, 0, 0.0, f32), 0.0),
-    ("prefix window", (1, 256, 256, 2, 1, 32, "prefix", 16, 32, 0.0, f32), 0.0),
-    ("hd 128", (1, 192, 192, 2, 2, 128, "causal", 48, 0, 30.0, bf16), 0.0),
+    # (B, Sq, Skv, H, K, hd, kind, window, prefix, softcap, dtype), theta,
+    # q_offset
+    ("ragged", (1, 100, 100, 2, 2, 32, "causal", 0, 0, 0.0, f32), 0.0, 0),
+    ("ragged cross", (1, 96, 200, 4, 2, 16, "full", 0, 0, 0.0, f32), 0.0, 0),
+    ("prefix window", (1, 256, 256, 2, 1, 32, "prefix", 16, 32, 0.0, f32), 0.0, 0),
+    ("hd 128", (1, 192, 192, 2, 2, 128, "causal", 48, 0, 30.0, bf16), 0.0, 0),
+    # One query row over a cache, fp32 and GQA, as a decode step.
+    ("decode fp32", (2, 1, 300, 4, 4, 64, "causal", 0, 0, 0.0, f32), 0.0, 200),
+    ("decode GQA", (2, 1, 300, 8, 2, 64, "causal", 0, 0, 0.0, bf16), 0.0, 299),
 ]
 WKV_CASES = chip_smoke.wkv6_cases() + [
     ("ragged S", (1, 100, 3, 16, (-1.0, 0.5), f32, True, 64, False)),
@@ -163,8 +168,8 @@ def test_decode_many_wrapper_launches_once_on_cuda(gen):
 
 @pytest.mark.parametrize("case", ATTN_CASES, ids=_ids(ATTN_CASES))
 def test_flash_attention_kernel_matches_plain(gen, case):
-    _, c, theta = case
-    chip_smoke.attention_case(fa, gen, c, theta)
+    _, c, theta, q_offset = case
+    chip_smoke.attention_case(fa, gen, c, theta, q_offset)
 
 
 def test_wrappers_launch_and_count_on_cuda(gen):
@@ -261,3 +266,53 @@ def test_profile_reader_matches_key_averages(gen):
         assert ranges[name][1] == count
         assert ranges[name][0] == pytest.approx(ms, rel=1e-9, abs=1e-9)
         assert ms > 0
+
+
+SERVE_ARCHS = chip_smoke.SERVE_PATHS
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_fp32_cached_matches_cache_free(gen, arch):
+    """``chip_smoke.serve_fp32_check`` on the reduced model on the card:
+    fp32 prefill and forced decode steps through the kernels against the
+    cache-free fp32 forward, within ``serve_tol``, and each planted fault
+    outside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 64 + chip_smoke.FP32_DECODE_STEPS))).cuda()
+    ops.reset_launches()
+    out = chip_smoke.serve_fp32_check(cfg, params, tokens, 64, 80)
+    assert out["outside"] == 0
+    assert all(f["outside"] > 0 for f in out["faults"].values())
+    assert ops.launches["flash_attention" if cfg.family == "dense" else "wkv6"] > 0
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_launches_each_layer_once_per_step(gen, arch):
+    """The serving launcher's ``generate`` on the card launches each layer's
+    kernel once in the prefill and once per decode step, and a dense decode
+    past the cache raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device="cuda")
+    ops.reset_launches()
+    run = generate(model, params, prompts, 5, stream=True)
+    key = "flash_attention" if cfg.family == "dense" else "wkv6"
+    assert ops.launches[key] == cfg.n_layers * 5
+    assert run.tokens.shape == (2, 5) and len(run.step_ms) == 4
+    window = generate(model, params, prompts, 5)
+    assert torch.equal(window.tokens, run.tokens) and window.step_ms == []
+    if cfg.family == "dense":
+        _, cache = model.prefill(params, {"tokens": prompts}, max_len=16)
+        with pytest.raises(ValueError, match="KV cache overflow"):
+            model.decode_step(params, {"tokens": run.tokens[:, :1], "pos": 16,
+                                       "cache": cache})

@@ -1,0 +1,409 @@
+"""The port's serving path against the JAX package's, on the CPU.
+
+Reduced GPT-2 (dense, KV cache) and RWKV-6 (ssm, recurrent state): both
+sides start from the same JAX-initialised params (converted through numpy)
+and see the same tokens, drawn from ``np.random.default_rng``. The
+tolerances are tests/test_kernels.py's, taken from ``chip_smoke.tol`` and
+``chip_smoke.rec_tol``: bf16 ``_tol`` for logits and bf16 caches and
+states, ``_rec_tol`` for the fp32 WKV state; ``chip_smoke.serve_tol`` for
+cached against cache-free logits in one package (``_tol`` for GPT-2,
+``_rec_tol`` for RWKV-6).
+
+The JAX side of a bf16 comparison runs op by op (``jax.disable_jit``), with
+bf16 ``sigmoid`` and tanh-``gelu`` evaluated in fp32 and rounded once, as
+torch evaluates them (``jax_op_by_op``). Compiled, the JAX forward's
+``lax.scan`` body lets XLA keep fused bf16 elementwise chains in fp32, and
+XLA's CPU backend evaluates bf16 ``sigmoid`` and ``gelu`` with bf16
+intermediates, off the correctly rounded value for a third of bf16 inputs
+when this was written (ROADMAP Queue 3). Each
+such rounding moves a bf16 residual by one unit in the last place, which
+the next layer norm amplifies: the compiled reference and the port then
+differ by up to 0.07 in the reduced RWKV-6's logits, in the training
+forward as much as in serving. Op by op, the two agree bit for bit on
+RWKV-6 and on GPT-2 with Pallas; GPT-2's XLA attention rounds its
+probabilities to bf16 before P·V, where the port's plain version does not.
+"""
+import importlib.util
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.models import rwkv6 as jax_rwkv6
+from repro.models import transformer as jax_transformer
+from repro_torch import tree as T
+from repro_torch.configs import ShapeCell, get_config
+from repro_torch.convert import state_from_numpy, state_to_numpy
+from repro_torch.kernels import wkv6 as W
+from repro_torch.launch import serve
+from repro_torch.models import build_model
+from repro_torch.models import rwkv6
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARCHS = ("gpt2", "rwkv6-1.6b")
+B, S, DECODE = 2, 24, 4
+
+
+def _load(rel):
+    """The module at ``rel`` under the repository root, by its path."""
+    spec = importlib.util.spec_from_file_location(pathlib.Path(rel).stem, ROOT / rel)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _load("chip_smoke.py")
+BF16, F32 = cs.tol(torch.bfloat16), cs.rec_tol(torch.float32)
+
+
+def _rounded_once(fn):
+    """``fn`` on a bf16 input evaluated in fp32 and rounded to bf16 once."""
+    def once(x, *args, **kwargs):
+        if x.dtype == jnp.bfloat16:
+            return fn(x.astype(jnp.float32), *args, **kwargs).astype(x.dtype)
+        return fn(x, *args, **kwargs)
+    return once
+
+
+@pytest.fixture
+def jax_op_by_op(monkeypatch):
+    """A context that runs the JAX package op by op, with bf16 ``sigmoid``
+    and ``gelu`` rounded once (see the module's docstring)."""
+    monkeypatch.setattr(jax.nn, "sigmoid", _rounded_once(jax.nn.sigmoid))
+    monkeypatch.setattr(jax.nn, "gelu", _rounded_once(jax.nn.gelu))
+    return jax.disable_jit
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def setup(request):
+    """Both packages' models on the same params (the port's init, seeded,
+    carried to JAX through numpy) and the same tokens."""
+    arch = request.param
+    jmodel = jax_build_model(jax_get_config(arch).reduced())
+    tmodel = build_model(get_config(arch).reduced(), device="cpu")
+    tparams = tmodel.init(torch.Generator().manual_seed(1))
+    jparams = jax.tree.map(jnp.asarray, state_to_numpy(tparams))
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, tmodel.cfg.vocab, size=(B, S + DECODE)).astype(np.int32)
+    return jmodel, jparams, tmodel, tparams, tokens
+
+
+def _close(got, want, path=""):
+    """A port tensor against a JAX array: bf16 ``_tol``, or ``_rec_tol``
+    for the fp32 WKV state."""
+    want = np.asarray(want)
+    tol = F32 if path == "wkv" else BF16
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype), path
+    torch.testing.assert_close(got.float(), torch.from_numpy(want.astype(np.float32)),
+                               **tol, msg=lambda m: f"{path}: {m}")
+
+
+def _close_tree(got, want):
+    for path, leaf in T.flatten_with_paths(got):
+        node = want
+        for key in path:
+            node = node[key]
+        _close(leaf, node, "/".join(path))
+
+
+def _jax_prefill(jmodel, jparams, prompts, max_len, use_pallas):
+    """The JAX package's prefill into a cache of ``max_len`` positions, as
+    its serving launcher runs it (its ``Model.prefill`` sizes the cache at
+    the prompt); the ssm state has no length."""
+    cfg = jmodel.cfg
+    if cfg.family == "ssm":
+        return jmodel.prefill(jparams, {"tokens": prompts}, use_pallas=use_pallas)
+    logits, cache, _ = jax_transformer.forward(
+        cfg, jparams, prompts, cache=jax_transformer.make_cache(cfg, B, max_len),
+        cache_pos=jnp.zeros((), jnp.int32), use_pallas=use_pallas, last_only=True)
+    return logits, cache
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_prefill_matches_jax(setup, jax_op_by_op, use_pallas):
+    """(a) ``Model.prefill`` against the JAX ``Model.prefill`` (Pallas in
+    interpret mode with ``use_pallas``): logits and the cache or state."""
+    jmodel, jparams, tmodel, tparams, tokens = setup
+    with jax_op_by_op():
+        jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :S])},
+                                use_pallas=use_pallas)
+    tl, tc = tmodel.prefill(tparams, {"tokens": torch.from_numpy(tokens[:, :S])})
+    assert tl.shape == (B, 1, tmodel.cfg.vocab)
+    _close(tl, jl, "logits")
+    _close_tree(tc, jc)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_decode_from_jax_cache_matches_jax(setup, jax_op_by_op, use_pallas):
+    """(b) The JAX prefill's cache or state carried into the port, then
+    ``DECODE`` teacher-forced ``decode_step``s on both sides, the JAX side
+    eagerly (jitted, its Pallas decode raises at ``int(q_offset)``)."""
+    jmodel, jparams, tmodel, tparams, tokens = setup
+    with jax_op_by_op():
+        _, jc = _jax_prefill(jmodel, jparams, jnp.asarray(tokens[:, :S]),
+                             S + DECODE, use_pallas)
+    tc = state_from_numpy(jax.tree.map(np.asarray, jc), "cpu")
+    for t in range(DECODE):
+        tok = tokens[:, S + t:S + t + 1]
+        with jax_op_by_op():
+            jl, jc = jmodel.decode_step(
+                jparams, {"tokens": jnp.asarray(tok),
+                          "pos": jnp.asarray(S + t, jnp.int32), "cache": jc},
+                use_pallas=use_pallas)
+        tl, tc = tmodel.decode_step(tparams, {"tokens": torch.from_numpy(tok),
+                                              "pos": S + t, "cache": tc})
+        _close(tl, jl, f"logits, step {t}")
+    _close_tree(tc, jc)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fp32_cached_matches_cache_free(arch):
+    """(c) In the port, fp32 prefill + teacher-forced decode against the
+    cache-free fp32 forward at every position, within ``serve_tol``; each
+    of the family's planted faults leaves that tolerance."""
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, size=(B, S + DECODE)))
+    out = cs.serve_fp32_check(cfg, params, toks, S, S + DECODE + 3)
+    assert out["outside"] == 0 and out["n_logits"] == B * (DECODE + 1) * cfg.vocab
+    assert out["tolerance"] == cs.serve_tol(cfg, torch.float32)
+    assert set(out["faults"]) == set(cs.SERVE_FAULTS[cfg.family])
+    assert all(f["outside"] > 0 for f in out["faults"].values())
+
+
+@pytest.mark.parametrize("arch, fault", [(a, f) for a in ARCHS for f in
+                                         cs.SERVE_FAULTS[get_config(a).family]])
+def test_fp32_check_fails_on_a_planted_fault(arch, fault):
+    """(c) The check itself raises when the fault is planted around it."""
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, size=(B, S + DECODE)))
+    with cs.planted_fault(fault):
+        with pytest.raises(AssertionError, match="differ from the cache-free"):
+            cs.serve_fp32_check(cfg, params, toks, S, S + DECODE + 3)
+
+
+def test_fp32_state_keeps_the_activation_dtype():
+    """RWKV-6's carried ``tm_x``/``cm_x`` come back in the forward's dtype,
+    not rounded into the bf16 buffers ``make_state`` gives."""
+    cfg = get_config("rwkv6-1.6b").reduced()
+    params = build_model(cfg, device="cpu").init()
+    toks = torch.randint(0, cfg.vocab, (B, 5), generator=torch.Generator().manual_seed(0))
+    state = rwkv6.make_state(cfg, B)
+    with torch.no_grad():
+        _, new, _ = rwkv6.forward(cfg, params, toks, state=state, dtype=torch.float32)
+    assert new["tm_x"].dtype == new["cm_x"].dtype == new["wkv"].dtype == torch.float32
+    assert state["tm_x"].dtype == torch.bfloat16 and not state["tm_x"].any()
+
+
+def test_rounded_once_bf16_sigmoid_and_gelu_match_torch():
+    """What ``jax_op_by_op`` relies on: on every bf16 value in [-6, 6], a
+    bf16 ``sigmoid`` and tanh-``gelu`` evaluated in fp32 and rounded once
+    (``_rounded_once``), and torch's, are the correctly rounded value (the
+    fp64 function rounded to bf16) nearly always. The count for XLA's own
+    CPU bf16 versions, off on about a third of them when this was written,
+    is reported in the message, not required."""
+    x = np.unique(np.linspace(-6.0, 6.0, 20001).astype(ml_dtypes.bfloat16))
+    x64 = x.astype(np.float64)
+    truths = {"sigmoid": 1.0 / (1.0 + np.exp(-x64)),
+              "gelu": 0.5 * x64 * (1.0 + np.tanh(np.sqrt(2.0 / np.pi)
+                                                 * (x64 + 0.044715 * x64 ** 3)))}
+    fns = {"sigmoid": (jax.nn.sigmoid, torch.sigmoid),
+           "gelu": (lambda a: jax.nn.gelu(a, approximate=True),
+                    lambda a: torch.nn.functional.gelu(a, approximate="tanh"))}
+    tx = torch.from_numpy(x64.astype(np.float32)).to(torch.bfloat16)
+    for name, (jfn, tfn) in fns.items():
+        truth = truths[name].astype(ml_dtypes.bfloat16)
+        off_jax = int((np.asarray(jfn(jnp.asarray(x))) != truth).sum())
+        off_once = int((np.asarray(_rounded_once(jfn)(jnp.asarray(x))) != truth).sum())
+        off_torch = int((state_to_numpy({"y": tfn(tx)})["y"] != truth).sum())
+        assert off_once < len(x) // 20 and off_torch < len(x) // 20, \
+            (name, f"rounded once {off_once}, torch {off_torch}, XLA's own "
+             f"{off_jax} off of {len(x)}")
+
+
+def test_decode_past_the_cache_raises():
+    """(d) A dense decode at ``pos = max_len`` raises in the port."""
+    cfg = get_config("gpt2").reduced()
+    model = build_model(cfg, device="cpu")
+    params = model.init()
+    prompts = torch.randint(0, cfg.vocab, (B, 8), generator=torch.Generator().manual_seed(0))
+    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=10)
+    tok = logits.argmax(-1)
+    for pos in (8, 9):
+        logits, cache = model.decode_step(params, {"tokens": tok, "pos": pos,
+                                                   "cache": cache})
+    with pytest.raises(ValueError, match="KV cache overflow"):
+        model.decode_step(params, {"tokens": tok, "pos": 10, "cache": cache})
+    with pytest.raises(ValueError, match="KV cache overflow"):
+        model.prefill(params, {"tokens": prompts}, max_len=7)
+
+
+def test_jax_reference_clamps_a_decode_past_the_cache():
+    """(d) The JAX reference decodes at ``pos = max_len`` with no error:
+    ``lax.dynamic_update_slice_in_dim`` clamps the start, so the step's K/V
+    overwrite the cache's last row (a reference fault, ROADMAP Queue 3)."""
+    jcfg = jax_get_config("gpt2").reduced()
+    jmodel = jax_build_model(jcfg)
+    jparams = jax.tree.map(jnp.asarray, state_to_numpy(
+        build_model(get_config("gpt2").reduced(), device="cpu").init()))
+    prompts = jnp.asarray(np.random.default_rng(0).integers(0, jcfg.vocab, (B, 8)),
+                          jnp.int32)
+    _, cache = jmodel.prefill(jparams, {"tokens": prompts})  # cache sized 8
+    before = np.asarray(cache["k"])
+    _, after = jmodel.decode_step(jparams, {"tokens": prompts[:, :1],
+                                            "pos": jnp.asarray(8, jnp.int32),
+                                            "cache": cache})
+    after = np.asarray(after["k"])
+    assert after.shape == before.shape
+    np.testing.assert_array_equal(after[:, :, :7], before[:, :, :7])
+    assert not np.array_equal(after[:, :, 7], before[:, :, 7])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_size_specs_match_jax(arch):
+    """(e) Full-size ``cache_specs`` and the decode cell's ``input_specs``
+    on the meta device: the JAX package's shapes and dtypes."""
+    jmodel = jax_build_model(jax_get_config(arch))
+    tmodel = build_model(get_config(arch), device="meta")
+
+    def specs(tree, jax_side):
+        leaves = (jax.tree_util.tree_flatten_with_path(tree)[0] if jax_side
+                  else T.flatten_with_paths(tree))
+        out = []
+        for path, x in leaves:
+            key = "/".join(str(k.key) for k in path) if jax_side else "/".join(path)
+            out.append((key, tuple(x.shape), str(x.dtype).removeprefix("torch.")))
+        return out
+
+    assert specs(tmodel.cache_specs(8, 1152), False) == specs(jmodel.cache_specs(8, 1152), True)
+    cell = ShapeCell("decode_32k", 32_768, 128, "decode")
+    got = tmodel.input_specs(cell)
+    assert all(leaf.device.type == "meta" for leaf in T.leaves(got))
+    assert specs(got, False) == specs(jmodel.input_specs(cell), True)
+    prefill = ShapeCell("prefill_32k", 32_768, 32, "prefill")
+    assert specs(tmodel.input_specs(prefill), False) == \
+        specs(jmodel.input_specs(prefill), True)
+
+
+def test_hybrid_serving_is_not_ported():
+    model = build_model(get_config("zamba2-1.2b").reduced(), device="meta")
+    with pytest.raises(NotImplementedError, match="Zamba2 serving"):
+        model.cache_specs(1, 8)
+
+
+def test_wkv6_decode_matches_jax_and_the_chunked_form():
+    """(f) ``wkv6_decode`` against the JAX ``wkv6_decode`` and the plain
+    chunked form at S = 1, fp32 ``_rec_tol``, from a nonzero state, with
+    decays over ``_decay``'s clip range."""
+    rng = np.random.default_rng(11)
+    Bn, H, hd = 3, 4, 16
+    r, k, v = (rng.standard_normal((Bn, H, hd)).astype(np.float32) for _ in range(3))
+    lw = np.clip(-np.exp(rng.uniform(-8.0, 3.0, (Bn, H, hd))), -60.0, -1e-6).astype(np.float32)
+    u = (0.3 * rng.standard_normal((H, hd))).astype(np.float32)
+    st = (0.1 * rng.standard_normal((Bn, H, hd, hd))).astype(np.float32)
+    jo, js = jax_rwkv6.wkv6_decode(*(jnp.asarray(a) for a in (r, k, v, lw, u, st)))
+    t = [torch.from_numpy(a) for a in (r, k, v, lw, u, st)]
+    o, s = rwkv6.wkv6_decode(*t)
+    torch.testing.assert_close(o, torch.from_numpy(np.asarray(jo)), **F32)
+    torch.testing.assert_close(s, torch.from_numpy(np.asarray(js)), **F32)
+    po, ps = W.wkv6_plain(*(x[:, None] for x in t[:4]), t[4], t[5], chunk=64)
+    torch.testing.assert_close(o, po[:, 0], **F32)
+    torch.testing.assert_close(s, ps, **F32)
+
+
+def test_convert_round_trips_bf16_bit_for_bit():
+    """(g) bf16 leaves (a JAX KV cache, numpy ``ml_dtypes.bfloat16``)
+    cross both ways bit for bit, beside fp32 and int32 leaves and 0-d ones."""
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 2 ** 16, size=(3, 5, 7), dtype=np.uint16)
+    bits[0, 0, :3] = (0x7F80, 0xFF80, 0x7FC1)  # +inf, -inf, a NaN payload
+    tree = {"k": bits.view(ml_dtypes.bfloat16),
+            "j": np.asarray(jnp.asarray(rng.standard_normal((4, 2)), jnp.bfloat16)),
+            "s": np.asarray(jnp.asarray(1.5, jnp.bfloat16)),
+            "f": rng.standard_normal((2, 3)).astype(np.float32),
+            "i": np.arange(4, dtype=np.int32)}
+    got = state_from_numpy(tree, "cpu")
+    assert got["k"].dtype == got["j"].dtype == got["s"].dtype == torch.bfloat16
+    assert got["s"].shape == ()
+    back = state_to_numpy(got)
+    for key, a in tree.items():
+        assert back[key].dtype == a.dtype and back[key].shape == a.shape
+        assert back[key].tobytes() == a.tobytes(), key
+
+
+def test_serving_entry_points_print_serve_ok(capsys):
+    """(h) The launcher, as a module in its own process, and the example on
+    the CPU."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gpt2",
+         "--device", "cpu"], capture_output=True, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.rstrip().endswith("SERVE_OK")
+    assert _load("examples/torch_serve.py").main(["--device", "cpu"]) == 0
+    assert capsys.readouterr().out.rstrip().endswith("SERVE_OK")
+
+
+def test_serve_launcher_lines(capsys):
+    """The launcher's per-request lines, as the JAX launcher prints them."""
+    assert serve.main(["--arch", "rwkv6-1.6b", "--requests", "2", "--tokens", "4",
+                       "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [line.split(":")[0] for line in lines] == ["req 0", "req 1", "SERVE_OK"]
+    assert "decode 4 toks" in lines[0] and "| sample [" in lines[0]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_streams_or_times_one_window(arch, monkeypatch):
+    """``generate`` prefills into a cache of ``S + n_tokens`` positions and
+    decodes greedily: with ``stream`` or without, its tokens equal those of
+    a prefill and decode loop written out here; only ``stream`` times each
+    step."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (B, 8)))
+    n = 5
+    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=8 + n)
+    want = [logits[:, -1:].argmax(-1)]
+    for t in range(n - 1):
+        logits, cache = model.decode_step(params, {"tokens": want[-1], "pos": 8 + t,
+                                                   "cache": cache})
+        want.append(logits[:, -1:].argmax(-1))
+    want = torch.cat(want, dim=1)
+    sizes = []
+    prefill = model.prefill
+    monkeypatch.setattr(model, "prefill", lambda p, b, *, max_len: (
+        sizes.append(max_len), prefill(p, b, max_len=max_len))[1])
+    streamed = serve.generate(model, params, prompts, n, stream=True, keep_logits=True)
+    window = serve.generate(model, params, prompts, n)
+    assert sizes == [8 + n, 8 + n]
+    assert torch.equal(streamed.tokens, want) and torch.equal(window.tokens, want)
+    assert len(streamed.step_ms) == n - 1 and window.step_ms == []
+    assert len(streamed.logits) == n and window.logits is None
+    assert window.decode_ms > 0 and streamed.decode_ms >= sum(streamed.step_ms)
+
+
+def test_serving_entry_points_need_cuda_without_device(monkeypatch):
+    """(h) Without ``--device`` they run on CUDA, and raise where there is
+    none; an arch of an unserved family or an unported arch exits non-zero."""
+    example = _load("examples/torch_serve.py")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (serve.main, example.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--arch", "gpt2"])
+        assert main(["--arch", "zamba2-1.2b", "--device", "cpu"]) != 0
+        assert main(["--arch", "tinyllama-1.1b", "--device", "cpu"]) != 0
+
