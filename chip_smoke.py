@@ -48,19 +48,24 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    ``train_elastic`` on GPT-2 at full width and depth, global batch 16 -> 20
    -> 16 over 4 -> 5 -> 4 logical devices, launches held to the exact
    counts, step times, the scale-out and peak memory;
-3d. serving: GPT-2 and RWKV-6 1.6B at full width and depth through the
-   serving launcher's ``generate`` (``Model.prefill``, ``Model.decode_step``):
-   batch 8, a 1024-token prompt, 128 greedy new tokens, a cache of 1152
-   positions, bf16; launches held to the exact counts; prefill ms, decode
-   ms per token (median, p90; each step closed by a sync), decode tokens/s,
+3d. serving: GPT-2, RWKV-6 1.6B and Zamba2 1.2B at full width and depth
+   through the serving launcher's ``generate`` (``Model.prefill``,
+   ``Model.decode_step``): batch 8, a 1024-token prompt, 128 greedy new
+   tokens, a cache of 1152 positions, bf16; launches held to the exact
+   counts; prefill ms, decode ms per token (median, p90; each step closed
+   by a sync), decode tokens/s,
    the decode loop timed as one window with one sync, peak memory, the
-   device's busy share of one profiled decode step; the bf16 prefill's logits
-   against the cache-free forward over the same prompt within ``_tol``
-   (GPT-2) or ``_rec_tol`` (RWKV-6); the bf16 drift of every decode step
-   against the cache-free forward (reported, not gated); fp32 prefill and
-   7 forced decode steps against the cache-free fp32 forward at the same
+   device's busy share of one profiled decode step and its five largest
+   device operations; the bf16 prefill's logits against the cache-free
+   forward over the same prompt within ``_tol`` (GPT-2) or ``_rec_tol``
+   (RWKV-6, Zamba2); the bf16 drift of every decode step against the
+   cache-free forward (reported, not gated); fp32 prefill and 7 forced
+   decode steps against the cache-free fp32 forward at the same
    tolerances, and planted faults (GPT-2: the cache written one slot off;
-   RWKV-6: ``x_last`` or the state not carried) that must fail that check;
+   RWKV-6: ``x_last`` or the state not carried; Zamba2: the conv or the
+   SSM state not carried, the shared block's applications sharing one KV
+   cache, the cache written one slot off, RoPE from position 0 at decode)
+   that must fail that check;
 4. a reference check on a small input: each reduced model's loss and
    gradient norm through the kernels on the card against the plain
    versions on the CPU;
@@ -70,9 +75,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    also the device time (the kernels' own durations in a profiler trace)
    beside the CUDA-event window, which holds the host's dispatch too, and
    for the decode the library call ``torch.mul(codes, scales[:, None])``
-   leaf by leaf; the decode shapes of attention (beside
-   ``scaled_dot_product_attention``) and WKV6 as device time per launch,
-   one input set per layer.
+   leaf by leaf; the decode shapes of attention (GPT-2's and Zamba2's,
+   beside ``scaled_dot_product_attention``), WKV6 and SSD as device time
+   per launch, one input set per layer (per application of Zamba2's
+   shared block).
 
     python3 chip_smoke.py --baseline DIR
 
@@ -177,7 +183,7 @@ MAIN_BATCHES = (PER_DEVICE_BATCH * 2, PER_DEVICE_BATCH * 3)
 # The serving runs (phase 3d), one per served family at full width and
 # depth: batch 8, a 1024-token prompt, 128 greedy new tokens (the prefill's
 # and 127 decode steps'), and so a cache of 1152 positions.
-SERVE_PATHS = ("gpt2", "rwkv6-1.6b")
+SERVE_PATHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 128
 SERVE_CACHE = SERVE_PROMPT + SERVE_TOKENS
 # Teacher-forced decode steps after the prefill in the fp32 check.
@@ -189,6 +195,10 @@ DECODE_Q_OFFSETS = (0, 1, 63, 64, 511, SERVE_CACHE - 1)
 # The decode WKV6's sequence lengths: one step, two, and either side of the
 # kernel's 32-step staging.
 DECODE_WKV_STEPS = (1, 2, 31, 33)
+# The decode SSD's sequence lengths from a carried state: one step, two,
+# and either side of the bf16 kernel's 64-row chunk (the rows past S are
+# zero-filled).
+DECODE_SSD_STEPS = (1, 2, 63, 65)
 
 
 def tol(dtype):
@@ -401,24 +411,32 @@ def main_shapes():
 
 
 def serve_attention_cases():
-    """``(label, case, rope_theta, q_offset)`` at the shapes GPT-2's
-    serving run gives the kernel: the prefill of the prompt into the cache
-    (Sq 1024 over Skv 1152, 128 rows masked), the decode over the whole
-    cache at each of ``DECODE_Q_OFFSETS`` and over a ragged Skv of 1000,
-    bf16 as the run gives them."""
+    """``(label, case, rope_theta, q_offset)`` at the shapes the serving
+    runs give the kernel, for each served family with attention (GPT-2;
+    Zamba2, whose queries and keys go through RoPE): the prefill of the
+    prompt into the cache (Sq 1024 over Skv 1152, 128 rows masked), the
+    decode over the whole cache at each of ``DECODE_Q_OFFSETS``, and for
+    GPT-2 over a ragged Skv of 1000, bf16 as the runs give them."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("gpt2")
-    B, H, K, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cases = []
+    for name in SERVE_PATHS:
+        cfg = get_config(name)
+        if cfg.family not in ("dense", "hybrid"):
+            continue
+        B, H, K, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        theta = cfg.rope_theta if cfg.positions == "rope" else 0.0
 
-    def case(Sq, Skv):
-        return (B, Sq, Skv, H, K, hd, "causal", 0, 0, cfg.attn_softcap,
-                torch.bfloat16)
+        def case(Sq, Skv):
+            return (B, Sq, Skv, H, K, hd, "causal", 0, 0, cfg.attn_softcap,
+                    torch.bfloat16)
 
-    return ([("gpt2 serve prefill", case(SERVE_PROMPT, SERVE_CACHE), 0.0, 0)]
-            + [(f"gpt2 serve decode q_offset={o}", case(1, SERVE_CACHE), 0.0, o)
-               for o in DECODE_Q_OFFSETS]
-            + [("gpt2 serve decode ragged Skv", case(1, 1000), 0.0, 999)])
+        cases += ([(f"{name} serve prefill", case(SERVE_PROMPT, SERVE_CACHE), theta, 0)]
+                  + [(f"{name} serve decode q_offset={o}", case(1, SERVE_CACHE),
+                      theta, o) for o in DECODE_Q_OFFSETS])
+        if cfg.family == "dense":
+            cases.append((f"{name} serve decode ragged Skv", case(1, 1000), theta, 999))
+    return cases
 
 
 def attention_cases():
@@ -598,10 +616,21 @@ def check_wkv6(W, gen):
 
 def ssd_cases():
     """``(label, case)``, case ``(B, S, H, P, N, dtype, with_state)``: the
-    Zamba2 path's shapes (bf16 x/B/C, as the path gives them), then the JAX
-    sweep and the bf16 edges with initial states."""
-    cases = [(f"{path} B={shape[0]}", (*shape, torch.bfloat16, False))
+    Zamba2 path's shapes (bf16 x/B/C, as the path gives them); the Zamba2
+    serving run's prefill (batch 8, the prompt, from a state) and decode,
+    batch 8 at each of ``DECODE_SSD_STEPS`` from a nonzero state; then the
+    JAX sweep and the bf16 edges with initial states."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2
+
+    bf16 = torch.bfloat16
+    cases = [(f"{path} B={shape[0]}", (*shape, bf16, False))
              for path, shape in main_shapes()["ssd"]]
+    _, H, P, N = mamba2._dims(get_config("zamba2-1.2b"))
+    cases.append(("zamba2-1.2b serve prefill",
+                  (SERVE_BATCH, SERVE_PROMPT, H, P, N, bf16, True)))
+    cases += [(f"zamba2-1.2b serve decode S={S}", (SERVE_BATCH, S, H, P, N, bf16, True))
+              for S in DECODE_SSD_STEPS]
     return (cases + [(f"sweep {i}", (*c, True)) for i, c in enumerate(SSD_SWEEP)]
             + [(f"sweep bf16 {i}", (*c, True)) for i, c in enumerate(SSD_BF16_EDGES)])
 
@@ -627,7 +656,8 @@ def check_ssd(SD, gen):
         err = ssd_case(SD, gen, case)
         if not label.startswith("sweep"):
             main_err = max(main_err, err)
-            log(f"ssd {label} {case[:4]} N={case[4]} bf16: max |kernel - plain| "
+            log(f"ssd {label} {case[:4]} N={case[4]} bf16"
+                f"{', from a state' if case[6] else ''}: max |kernel - plain| "
                 f"{err:.3e}")
     torch.cuda.synchronize()
     log(f"ssd: {len(SSD_SWEEP)} sweep cases and {len(SSD_BF16_EDGES)} bf16 "
@@ -1327,17 +1357,41 @@ def replica_tier(trainer, name):
 
 def serve_tol(cfg, dtype):
     """The fixed tolerance of a serving check, tests/test_kernels.py's own:
-    ``_tol`` for the dense family (attention); ``_rec_tol`` for the ssm
-    family, whose decode runs WKV6 one step per launch where the cache-free
-    forward runs every step in one launch, so its fp32 sums come in another
-    order."""
+    ``_tol`` for the dense family (attention); ``_rec_tol`` for the ssm and
+    hybrid families, whose decode runs WKV6 or SSD one step per launch
+    where the cache-free forward runs every step in one launch, so their
+    fp32 sums come in another order."""
     return tol(dtype) if cfg.family == "dense" else rec_tol(dtype)
+
+
+def serve_launches(cfg, n_tokens):
+    """The launches of one served request of ``n_tokens`` new tokens: a
+    forward each (the prefill and ``n_tokens - 1`` decode steps), which
+    serving runs without remat and without a scale-out."""
+    import dataclasses
+
+    return expected_launches(dataclasses.replace(cfg, remat=False), 0,
+                             steps=n_tokens, scale_outs=0)
 
 
 #: Faults planted in the serving path, per family; each must fail the fp32
 #: check of cached against cache-free logits.
 SERVE_FAULTS = {"dense": ("cache written one slot off",),
-                "ssm": ("x_last not carried", "state not carried")}
+                "ssm": ("x_last not carried", "state not carried"),
+                "hybrid": ("conv state not carried", "SSM state not carried",
+                           "applications sharing one KV cache",
+                           "cache written one slot off",
+                           "RoPE positions from 0 at decode")}
+
+
+def serve_faults(cfg):
+    """The family's ``SERVE_FAULTS`` that can show on ``cfg``: a config
+    that applies its shared block once has no second KV cache to share."""
+    from repro_torch.models import zamba2
+
+    return tuple(f for f in SERVE_FAULTS[cfg.family]
+                 if f != "applications sharing one KV cache"
+                 or zamba2.n_shared_apps(cfg) > 1)
 
 
 @contextlib.contextmanager
@@ -1345,10 +1399,14 @@ def planted_fault(fault):
     """Plant ``fault`` (None or one of ``SERVE_FAULTS``) in the port's
     serving path for the duration: the KV cache written one row late (both
     the prefill's and each decode step's write); the token shift ignoring
-    the carried ``x_last``; the WKV6 call ignoring the carried state."""
+    the carried ``x_last``; the WKV6 or SSD call ignoring the carried
+    state; the causal conv ignoring its carried context (zeros in its
+    place); every application of Zamba2's shared block reading and writing
+    the first application's KV cache; RoPE rotating each call's rows from
+    position 0 (a prefill from 0 is unchanged, a decode step is not)."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
-    from repro_torch.models import rwkv6
+    from repro_torch.models import mamba2, rwkv6, zamba2
 
     if fault is None:
         yield
@@ -1371,6 +1429,33 @@ def planted_fault(fault):
 
         def faulty(r, k, v, lw, u, state=None, **kw):
             return orig(r, k, v, lw, u, None, **kw)
+    elif fault == "SSM state not carried":
+        module, name = ops, "ssd"
+        orig = ops.ssd
+
+        def faulty(x, dt, A_log, Bm, Cm, state=None, **kw):
+            return orig(x, dt, A_log, Bm, Cm, None, **kw)
+    elif fault == "conv state not carried":
+        module, name = mamba2, "causal_conv"
+        orig = mamba2.causal_conv
+
+        def faulty(x, w, b, conv_state=None):
+            return orig(x, w, b, None if conv_state is None
+                        else torch.zeros_like(conv_state))
+    elif fault == "applications sharing one KV cache":
+        module, name = zamba2, "_shared_apply"
+        orig = zamba2._shared_apply
+
+        def faulty(sp, x, x0, cfg, positions, cache_kv=None, cache_pos=None):
+            if cache_kv is not None:  # views of (apps, B, Smax, K, hd)
+                cache_kv = tuple(c._base[0] for c in cache_kv)
+            return orig(sp, x, x0, cfg, positions, cache_kv, cache_pos)
+    elif fault == "RoPE positions from 0 at decode":
+        module, name = L, "rope"
+        orig = L.rope
+
+        def faulty(x, positions, theta):
+            return orig(x, positions - positions[..., :1], theta)
     else:
         raise ValueError(f"unknown fault {fault!r}")
     setattr(module, name, faulty)
@@ -1380,30 +1465,36 @@ def planted_fault(fault):
         setattr(module, name, orig)
 
 
-def serve_fp32(cfg, params, tokens, n_prompt, cache_len):
-    """Serving in fp32, teacher-forced: prefill ``tokens[:, :n_prompt]``
-    into an fp32 cache of ``cache_len`` positions (dense) or from a zero
-    state (ssm), then decode the other tokens one per step, each at its
+def serve_forced(cfg, params, tokens, n_prompt, cache_len, dtype=torch.float32):
+    """Serving teacher-forced, activations and KV caches in ``dtype``:
+    prefill ``tokens[:, :n_prompt]`` into a cache of ``cache_len``
+    positions (dense, hybrid) or from a zero state (ssm, and hybrid's
+    Mamba2 blocks), then decode the other tokens one per step, each at its
     position. Returns the logits at positions ``n_prompt - 1`` onwards, (B,
-    n - n_prompt + 1, V) fp32."""
-    from repro_torch.models import rwkv6, transformer
+    n - n_prompt + 1, V) in ``dtype``."""
+    from repro_torch.models import rwkv6, transformer, zamba2
 
     B, n = tokens.shape
-    f32 = torch.float32
     with torch.no_grad():
         if cfg.family == "dense":
-            cache = transformer.make_cache(cfg, B, cache_len, f32, tokens.device)
+            cache = transformer.make_cache(cfg, B, cache_len, dtype, tokens.device)
 
             def step(toks, pos, cache):
                 return transformer.forward(cfg, params, toks, cache=cache,
                                            cache_pos=pos, last_only=True,
-                                           dtype=f32)[:2]
+                                           dtype=dtype)[:2]
+        elif cfg.family == "hybrid":
+            cache = zamba2.make_state(cfg, B, cache_len, dtype, tokens.device)
+
+            def step(toks, pos, state):
+                return zamba2.forward(cfg, params, toks, state=dict(state, pos=pos),
+                                      last_only=True, dtype=dtype)[:2]
         else:
             cache = rwkv6.make_state(cfg, B, tokens.device)
 
             def step(toks, pos, state):
                 return rwkv6.forward(cfg, params, toks, state=state,
-                                     last_only=True, dtype=f32)[:2]
+                                     last_only=True, dtype=dtype)[:2]
 
         logits, cache = step(tokens[:, :n_prompt], 0, cache)
         out = [logits[:, -1]]
@@ -1414,10 +1505,10 @@ def serve_fp32(cfg, params, tokens, n_prompt, cache_len):
 
 
 def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len):
-    """fp32 cached against cache-free logits: ``serve_fp32`` against the
+    """fp32 cached against cache-free logits: ``serve_forced`` against the
     cache-free fp32 forward over all of ``tokens``, at every position from
-    the prompt's last on, within ``serve_tol(cfg, fp32)``; then each of the
-    family's ``SERVE_FAULTS`` planted, each of which must leave that
+    the prompt's last on, within ``serve_tol(cfg, fp32)``; then each of
+    ``serve_faults(cfg)`` planted, each of which must leave that
     tolerance. Raises if either fails; returns the errors."""
     from repro_torch.models import layers as L
     from repro_torch.models.model_api import _family_forward
@@ -1432,7 +1523,7 @@ def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len):
 
     def run(fault):
         with planted_fault(fault):
-            got = serve_fp32(cfg, params, tokens, n_prompt, cache_len)
+            got = serve_forced(cfg, params, tokens, n_prompt, cache_len)
         d = (got - want).abs()
         return float(d.max()), int((d > t["atol"] + t["rtol"] * want.abs()).sum())
 
@@ -1444,7 +1535,7 @@ def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len):
         raise AssertionError(f"{cfg.name}: fp32 cached logits differ from the "
                              f"cache-free forward by up to {err:.3e}, {bad} "
                              f"outside {t}")
-    for fault in SERVE_FAULTS[cfg.family]:
+    for fault in serve_faults(cfg):
         f_err, f_bad = run(fault)
         out["faults"][fault] = {"max_abs_diff": f_err, "outside": f_bad}
         if not f_bad:
@@ -1461,8 +1552,9 @@ def serve_path(ops, name):
     positions, bf16 as served; params from the port's init, seeded. Each
     decode step is closed by a sync and timed (``generate(stream=True)``).
     The launch counters are zeroed just before the run and read just after
-    it, and held to the exact count (each layer's kernel once in the
-    prefill and once per decode step). Then, the counts read:
+    it, and held to the exact count (``serve_launches``: each layer's
+    kernel once in the prefill and once per decode step). Then, the counts
+    read:
 
     * the same request again, its decode loop timed as one window closed
       by one sync, as the JAX launcher times it;
@@ -1478,8 +1570,8 @@ def serve_path(ops, name):
     * fp32 prefill + ``FP32_DECODE_STEPS`` forced decode steps against the
       cache-free fp32 forward (``serve_fp32_check``, gated), with the
       family's planted faults;
-    * one profiled decode step: device busy time and its share of the
-      median step.
+    * one profiled decode step: device busy time, its share of the median
+      step, and the five device operations that take the most of it.
 
     Returns the launches."""
     from torch.profiler import ProfilerActivity, profile
@@ -1514,9 +1606,7 @@ def serve_path(ops, name):
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
-    expected = dict.fromkeys(ops.launches, 0)
-    expected["flash_attention" if cfg.family == "dense" else "wkv6"] = (
-        cfg.n_layers * SERVE_TOKENS)
+    expected = serve_launches(cfg, SERVE_TOKENS)
     if launches != expected:
         raise AssertionError(f"serving {name}: launches {launches}, expected {expected}")
     served = torch.stack(run.logits, dim=1)  # (B, SERVE_TOKENS, V) bf16
@@ -1602,7 +1692,9 @@ def serve_path(ops, name):
         "wall_ms": prof_ms, "device_busy_ms": busy,
         "device_events": sum(r[1] for r in rows),
         "busy_share_of_median_step": busy / summary["decode_ms_median"],
-        "busy_share_of_window_step": busy / summary["decode_window_ms_per_token"]}
+        "busy_share_of_window_step": busy / summary["decode_window_ms_per_token"],
+        "top_device_ops": [{"ms": ms, "count": count, "name": key[:120]}
+                           for ms, count, key in rows[:5]]}
     del logits, cache
 
     fp = summary["fp32_check"]
@@ -1621,6 +1713,9 @@ def serve_path(ops, name):
         f"median step, "
         f"{summary['profiled_decode']['busy_share_of_window_step']:.1%} of the "
         f"window's per-token time")
+    for op in summary["profiled_decode"]["top_device_ops"]:
+        log(f"  decode step device time {op['ms']:.3f} ms ({op['ms'] / busy:.1%}), "
+            f"{op['count']}x {op['name'][:80]}")
     log(f"  bf16 prefill vs the cache-free forward over the same prompt: max "
         f"|diff| {summary['bf16_prefill']['max_abs_diff']:.4f} (within {t}); "
         f"over the decode steps (not gated) up to "
@@ -1956,22 +2051,25 @@ def _per_launch(fn, sets, reps=5):
     return device, cuda_ms(one_pass, reps, 1) / len(sets)
 
 
-def time_decode_attention(fa, MaskSpec, gen):
-    """The bf16 kernel at GPT-2's decode shape, one query row over the
-    whole cache at the middle of the decode's positions, on one cache per
-    layer; beside it the plain version and ``scaled_dot_product_attention``
-    with the same mask (checked against the plain version at ``_tol``).
-    The bound counts the cache rows the mask admits."""
+def time_decode_attention(fa, MaskSpec, gen, name):
+    """The bf16 kernel at the serving run of ``name``'s decode shape, one
+    query row over the whole cache at the middle of the decode's positions,
+    on one cache per layer or (Zamba2) per application of the shared block;
+    beside it the plain version and ``scaled_dot_product_attention`` with
+    the same mask (checked against the plain version at ``_tol``). The bound
+    counts the cache rows the mask admits."""
     from repro_torch.configs import get_config
+    from repro_torch.models import zamba2
 
-    cfg = get_config("gpt2")
+    cfg = get_config(name)
     B, H, K, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_sets = zamba2.n_shared_apps(cfg) if cfg.family == "hybrid" else cfg.n_layers
     q_offset = SERVE_PROMPT + SERVE_TOKENS // 2
     bf16 = torch.bfloat16
     sets = [(torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(bf16),
              torch.randn((B, SERVE_CACHE, K, hd), generator=gen, device="cuda").to(bf16),
              torch.randn((B, SERVE_CACHE, K, hd), generator=gen, device="cuda").to(bf16))
-            for _ in range(cfg.n_layers)]
+            for _ in range(n_sets)]
     scale = hd ** -0.5
     spec = MaskSpec("causal")
     mask = (torch.arange(SERVE_CACHE, device="cuda") <= q_offset)[None, None, None, :]
@@ -1993,14 +2091,15 @@ def time_decode_attention(fa, MaskSpec, gen):
     torch.testing.assert_close(library(q, k, v).float(), plain(q, k, v).float(),
                                **tol(bf16))
     ms, window = _per_launch(kernel, sets)
-    plain_ms, _ = _per_launch(plain, sets, reps=1)
+    plain_ms, plain_window = _per_launch(plain, sets, reps=1)
     library_ms, library_window = _per_launch(library, sets)
     n_kv = q_offset + 1
     nbytes = 2 * (B * H * hd + 2 * B * n_kv * K * hd + B * H * hd)
     flops = 4 * B * H * hd * n_kv
-    return dict(shape=[B, 1, SERVE_CACHE, H, K, hd], q_offset=q_offset,
+    return dict(model=name, shape=[B, 1, SERVE_CACHE, H, K, hd], q_offset=q_offset,
                 ms=ms, window_ms=window, plain_ms=plain_ms,
-                library_ms=library_ms, library_window_ms=library_window,
+                plain_window_ms=plain_window, library_ms=library_ms,
+                library_window_ms=library_window,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
@@ -2015,13 +2114,41 @@ def time_decode_wkv6(W, gen):
     sets = [wkv6_inputs(gen, B, 1, H, hd, torch.float32, decay="init", state=True)
             for _ in range(cfg.n_layers)]
     ms, window = _per_launch(W.wkv6_kernel, sets)
-    plain_ms, _ = _per_launch(lambda *a: W.wkv6_plain(*a, chunk=64), sets, reps=1)
+    plain_ms, plain_window = _per_launch(lambda *a: W.wkv6_plain(*a, chunk=64),
+                                         sets, reps=1)
     n = B * H * hd
     # r, k, v, lw read, out written; u read; the state read and written.
     nbytes = 5 * 4 * n + 4 * H * hd + 2 * 4 * B * H * hd * hd
     flops = 5 * n * hd
     return dict(shape=[B, 1, H, hd], ms=ms, window_ms=window,
-                plain_ms=plain_ms, library_ms=None,
+                plain_ms=plain_ms, plain_window_ms=plain_window, library_ms=None,
+                bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
+
+
+def time_decode_ssd(SD, gen):
+    """The kernel at Zamba2's decode shape, one step from a carried state,
+    bf16 x/B/C as the run gives them, on one state per layer; beside it the
+    plain version (at the chunk ``ops.ssd`` gives it). No library call
+    computes the scan. The bound counts the recurrence's fp32 work."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2
+
+    cfg = get_config("zamba2-1.2b")
+    _, H, P, N = mamba2._dims(cfg)
+    B = SERVE_BATCH
+    sets = [ssd_inputs(gen, B, 1, H, P, N, torch.bfloat16, state=True)
+            for _ in range(cfg.n_layers)]
+    ms, window = _per_launch(SD.ssd_kernel, sets)
+    plain_ms, plain_window = _per_launch(lambda *a: SD.ssd_plain(*a, chunk=64),
+                                         sets, reps=1)
+    # x, B, C read (bf16), dt and A_log read, y written (fp32); the state
+    # read and written (fp32).
+    nbytes = (2 * B * H * P + 2 * 2 * B * N + 4 * B * H + 4 * H + 4 * B * H * P
+              + 2 * 4 * B * H * P * N)
+    # Per state element: h = a*h + (dt*x)*B (mul, FMA), y += C*h (FMA).
+    flops = 5 * B * H * P * N
+    return dict(shape=[B, 1, H, P, N], ms=ms, window_ms=window,
+                plain_ms=plain_ms, plain_window_ms=plain_window, library_ms=None,
                 bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
 
 
@@ -2268,8 +2395,10 @@ def main():
     if old is not None:
         for name, t in time_baseline(old, gen, shapes).items():
             times[name]["baseline_ms"] = t["baseline_ms"]
-    for name, t in (("flash_attention", time_decode_attention(fa, MaskSpec, gen)),
-                    ("wkv6", time_decode_wkv6(W, gen))):
+    for name, t in (
+            ("flash_attention", time_decode_attention(fa, MaskSpec, gen, "gpt2")),
+            ("flash_attention", time_decode_attention(fa, MaskSpec, gen, "zamba2-1.2b")),
+            ("wkv6", time_decode_wkv6(W, gen)), ("ssd", time_decode_ssd(SD, gen))):
         bound_ms, bound_by = t.pop("bound")
         log(json.dumps({"kernel_decode": name, **t, "bound_ms": bound_ms,
                         "bound_by": bound_by}))

@@ -1,6 +1,7 @@
 """Serving demo on the PyTorch port: batched prefill + greedy decode with
-a KV cache (GPT-2) or a recurrent state (RWKV-6), the twin of
-``examples/serve.py``.
+a KV cache (GPT-2), a recurrent state (RWKV-6) or both (Zamba2: a KV cache
+per application of its shared attention block beside the Mamba2 blocks'
+conv and SSM states), the twin of ``examples/serve.py``.
 
 Serves the reduced config: prefill a batch of prompts into a cache sized
 for the whole generation, then decode tokens autoregressively through
@@ -9,8 +10,9 @@ for the whole generation, then decode tokens autoregressively through
     PYTHONPATH=src python examples/torch_serve.py [--arch gpt2] [--tokens 16] [--device cpu]
 
 The default arch is ``gpt2``: the JAX demo's ``tinyllama-1.1b`` is not
-ported. Runs on CUDA unless ``--device`` names another device (``cpu``
-runs the kernels' plain versions).
+ported; ``--arch`` takes ``rwkv6-1.6b`` and ``zamba2-1.2b`` too. Runs on
+CUDA unless ``--device`` names another device (``cpu`` runs the kernels'
+plain versions).
 """
 import argparse
 import sys

@@ -1,6 +1,8 @@
 """Serving launcher of the port, from ``repro/launch/serve.py``: batched
-prefill + greedy autoregressive decode with a KV cache (dense) or a
-recurrent state (ssm), request after request, with per-phase timing.
+prefill + greedy autoregressive decode with a KV cache (dense), a
+recurrent state (ssm) or both (hybrid: one KV cache per application of the
+shared attention block, and each Mamba2 block's conv and SSM states),
+request after request, with per-phase timing.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2 \
         [--requests 3] [--batch 4] [--prompt-len 32] [--tokens 16] [--device cpu]
@@ -50,11 +52,13 @@ def _sync(device):
 def generate(model, params, prompts, n_tokens: int, *, stream: bool = False,
              keep_logits: bool = False) -> Generation:
     """Prefill ``prompts`` (B, S) into a cache of ``S + n_tokens``
-    positions, then ``n_tokens - 1`` greedy decode steps: ``n_tokens`` new
-    tokens. The decode loop is timed as one window closed by one sync, as
-    the JAX launcher times it; with ``stream`` each step is closed by a
-    sync and timed, as for a server that hands out each token as it comes,
-    and the window then holds those syncs too."""
+    positions (for every family: the JAX launcher serves the hybrid one
+    through its ``Model.prefill``, which sizes the cache at S), then
+    ``n_tokens - 1`` greedy decode steps: ``n_tokens`` new tokens. The
+    decode loop is timed as one window closed by one sync, as the JAX
+    launcher times it; with ``stream`` each step is closed by a sync and
+    timed, as for a server that hands out each token as it comes, and the
+    window then holds those syncs too."""
     dev = model.device
     prompts = torch.as_tensor(prompts, device=dev).long()
     B, S = prompts.shape

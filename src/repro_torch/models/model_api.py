@@ -18,9 +18,10 @@ Batch layouts (integer tokens):
   decode:  {"tokens": (B, 1), "pos": int or 0-d tensor, "cache": tree}
 
 There is no ``use_pallas`` switch: attention, WKV6 and SSD always run the
-port's kernels on CUDA. Serving runs for the dense and ssm families under
-``torch.no_grad()``; a dense cache is written in place. Not ported yet:
-serving the hybrid family (Zamba2), and the moe, vlm and encdec families.
+port's kernels on CUDA. Serving runs for the dense, ssm and hybrid families
+under ``torch.no_grad()``; the KV caches (dense, and hybrid's one per
+application of its shared block) are written in place. Not ported yet: the
+moe, vlm and encdec families.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from repro_torch.optim import clip_by_global_norm, make_optimizer
 
 AUX_COEF = 0.01
 #: families whose prefill and decode are ported.
-SERVED = ("dense", "ssm")
+SERVED = ("dense", "ssm", "hybrid")
 #: family → (init, forward) of the ported families.
 _FAMILIES = {
     "dense": (transformer.init_transformer, transformer.forward),
@@ -105,15 +106,15 @@ class Model:
     def _served(self):
         if self.cfg.family not in SERVED:
             raise NotImplementedError(
-                f"serving the {self.cfg.family} family is not ported yet "
-                f"(Zamba2 serving is the next slice, ROADMAP Queue 1 item 5)")
+                f"serving the {self.cfg.family} family is not ported yet")
 
     @torch.no_grad()
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
         """Run the prompt ``batch["tokens"]`` (B, S) from an empty cache →
-        (last-position logits (B, 1, V), cache). The dense cache holds
-        ``max_len`` positions (default S, as in the JAX package, which
-        leaves no room to decode); the ssm state has no length."""
+        (last-position logits (B, 1, V), cache). The dense and hybrid KV
+        caches hold ``max_len`` positions (default S, as in the JAX
+        package, which leaves no room to decode); the ssm state has no
+        length."""
         self._served()
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
@@ -124,6 +125,13 @@ class Model:
             logits, cache, _ = transformer.forward(cfg, params, tokens, cache=cache,
                                                    cache_pos=0, last_only=True)
             return logits, cache
+        if cfg.family == "hybrid":
+            state = zamba2.make_state(cfg, B, S if max_len is None else max_len,
+                                      device=self.device)
+            logits, state, _ = zamba2.forward(cfg, params, tokens,
+                                              state=dict(state, pos=0),
+                                              last_only=True)
+            return logits, state
         state = rwkv6.make_state(cfg, B, device=self.device)
         logits, state, _ = rwkv6.forward(cfg, params, tokens, state=state,
                                          last_only=True)
@@ -132,9 +140,11 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, batch):
         """batch: {"tokens": (B, 1), "pos": write position, "cache"} →
-        (logits (B, 1, V), cache). A dense cache is written in place and
-        returned; writing past its end raises. ``pos`` is unused by the ssm
-        family, whose state carries its own position."""
+        (logits (B, 1, V), cache). A KV cache is written in place at
+        ``pos`` and returned; writing past its end raises. The hybrid
+        family, as in JAX, takes the position from ``pos``, not from the
+        state. ``pos`` is unused by the ssm family, whose state carries no
+        position."""
         self._served()
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
@@ -142,6 +152,10 @@ class Model:
             logits, cache, _ = transformer.forward(
                 cfg, params, tokens, cache=batch["cache"], cache_pos=batch["pos"])
             return logits, cache
+        if cfg.family == "hybrid":
+            logits, state, _ = zamba2.forward(
+                cfg, params, tokens, state=dict(batch["cache"], pos=batch["pos"]))
+            return logits, state
         logits, state, _ = rwkv6.forward(cfg, params, tokens, state=batch["cache"])
         return logits, state
 
@@ -162,6 +176,8 @@ class Model:
         self._served()
         if self.cfg.family == "dense":
             return transformer.cache_specs(self.cfg, batch, max_len)
+        if self.cfg.family == "hybrid":
+            return zamba2.state_specs(self.cfg, batch, max_len)
         return rwkv6.state_specs(self.cfg, batch)
 
 

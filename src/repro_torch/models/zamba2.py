@@ -1,5 +1,4 @@
-"""Zamba2 hybrid, training path, from ``repro/models/zamba2.py``
-[arXiv:2411.15242].
+"""Zamba2 hybrid, from ``repro/models/zamba2.py`` [arXiv:2411.15242].
 
 A stack of Mamba2 blocks with a single weight-shared attention+MLP block
 applied every ``shared_attn_every`` layers on concat([h, h₀]) (h₀ = the
@@ -10,8 +9,13 @@ then runs its Mamba2 blocks. With ``cfg.remat`` each Mamba2 block is
 checkpointed (non-reentrant); the shared block is applied outside the
 checkpoint, as in JAX.
 
-Not ported yet (serving): the ``state`` branch of ``forward`` (KV caches,
-Mamba2 states), ``make_state`` and ``state_specs``.
+Serving: ``forward`` with ``state`` (``make_state``) carries one KV cache
+per application of the shared block, slices ``attn_k[i]``/``attn_v[i]`` of
+one (apps, B, Smax, K, hd) tensor each written in place at the state's
+position, and every Mamba2 block's state (``mamba2.block_apply``), returned
+as new tensors. RoPE reads the absolute positions ``pos + arange(S)``.
+``Model.prefill`` and ``decode_step`` pass ``pos`` as a host integer, so a
+decode step never waits on the device for it.
 """
 from __future__ import annotations
 
@@ -59,41 +63,94 @@ def init_zamba2(cfg, gen: torch.Generator, device):
     }
 
 
-def _shared_apply(sp, x, x0, cfg, positions):
+def _shared_apply(sp, x, x0, cfg, positions, cache_kv=None, cache_pos=None):
     dt = x.dtype
     z = torch.cat([x, x0], dim=-1) @ sp["in_proj"].to(dt)
     h = L.apply_norm(sp["ln1"], z, cfg.norm)
     z = z + L.attention_sublayer(sp["attn"], h, cfg, MaskSpec("causal"),
-                                 positions=positions)[0]
+                                 positions=positions, cache_kv=cache_kv,
+                                 cache_pos=cache_pos)[0]
     h = L.apply_norm(sp["ln2"], z, cfg.norm)
     z = z + L.mlp_sublayer(sp["mlp"], h, cfg.mlp)
     return x + z
 
 
 def _mamba_body(cfg, x, lp):
-    return x + M2.block_apply(lp, x, cfg)
+    return x + M2.block_apply(lp, x, cfg)[0]
 
 
-def forward(cfg, params, tokens, *, return_hidden: bool = False,
-            dtype=torch.bfloat16):
-    """Train/eval forward with no cache: tokens (B, S) int64 →
-    (logits, aux_loss), or (final hidden states, aux_loss) with
-    ``return_hidden``."""
+def forward(cfg, params, tokens, *, state=None, last_only: bool = False,
+            return_hidden: bool = False, dtype=torch.bfloat16):
+    """tokens (B, S) int64. ``state``: {"mamba": {"h": (L,B,H,P,N) fp32,
+    "conv": (L,B,K-1,conv_dim)}, "attn_k"/"attn_v": (apps,B,Smax,K,hd),
+    "pos": the write position, an int or 0-d tensor} or None.
+
+    Without a state → (logits, aux_loss), or (final hidden states,
+    aux_loss) with ``return_hidden``. With one → (logits, new_state, aux):
+    the KV caches are written in place at ``pos`` and returned as the same
+    tensors, the Mamba2 states as new ones (the given ones are left as they
+    were), and the new ``pos`` is ``pos + S``. ``last_only`` keeps the last
+    position's logits only."""
     B, S = tokens.shape
     x = L.embed_tokens(params["embed"], tokens, cfg, dtype=dtype)
     x0 = x
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    pos = 0 if state is None else int(state["pos"])
+    positions = pos + torch.arange(S, dtype=torch.int32, device=tokens.device)
     blocks = T.unstack(params["mamba"], cfg.n_layers)
-    for lo, hi in _segments(cfg):
-        # Shared attention block (weight-tied across applications).
-        x = _shared_apply(params["shared"], x, x0, cfg, positions)
-        for lp in blocks[lo:hi]:
-            if cfg.remat:
-                x = checkpoint(_mamba_body, cfg, x, lp, use_reentrant=False)
+    carried = []
+    for i, (lo, hi) in enumerate(_segments(cfg)):
+        # Shared attention block (weight-tied across applications), each
+        # application with its own KV cache.
+        if state is None:
+            x = _shared_apply(params["shared"], x, x0, cfg, positions)
+        else:
+            x = _shared_apply(params["shared"], x, x0, cfg, positions,
+                              (state["attn_k"][i], state["attn_v"][i]), pos)
+        for j in range(lo, hi):
+            if state is not None:
+                st = {k: v[j] for k, v in state["mamba"].items()}
+                out, new_st = M2.block_apply(blocks[j], x, cfg, state=st)
+                x = x + out
+                carried.append(new_st)
+            elif cfg.remat:
+                x = checkpoint(_mamba_body, cfg, x, blocks[j], use_reentrant=False)
             else:
-                x = _mamba_body(cfg, x, lp)
+                x = _mamba_body(cfg, x, blocks[j])
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    if last_only:
+        x = x[:, -1:]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if return_hidden:
+    if return_hidden and state is None:
         return x, aux
-    return L.unembed(params["embed"], x, cfg), aux
+    logits = L.unembed(params["embed"], x, cfg)
+    if state is not None:
+        new_state = {
+            "mamba": {k: torch.stack([st[k] for st in carried])
+                      for k in ("h", "conv")},
+            "attn_k": state["attn_k"], "attn_v": state["attn_v"],
+            "pos": torch.full((), pos + S, dtype=torch.int32, device=x.device),
+        }
+        return logits, new_state, aux
+    return logits, aux
+
+
+def make_state(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
+    """Zeroed serving state: every Mamba2 block's (``mamba2.block_state``,
+    stacked), one KV cache of ``max_len`` positions per application of the
+    shared block, and ``pos`` 0. The KV caches and the conv contexts are in
+    ``dtype`` (bf16 by default, as in JAX), the SSM states fp32."""
+    m = M2.block_state(cfg, batch, "meta", dtype)
+    kv_shape = (n_shared_apps(cfg), batch, max_len, cfg.n_kv_heads,
+                cfg.head_dim)
+    return {
+        "mamba": {k: torch.zeros((cfg.n_layers,) + v.shape, dtype=v.dtype,
+                                 device=device) for k, v in m.items()},
+        "attn_k": torch.zeros(kv_shape, dtype=dtype, device=device),
+        "attn_v": torch.zeros(kv_shape, dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def state_specs(cfg, batch, max_len, dtype=torch.bfloat16):
+    """The state's shapes and dtypes as meta-device tensors (no memory)."""
+    return make_state(cfg, batch, max_len, dtype, device="meta")

@@ -8,6 +8,7 @@ runs where only PyTorch is installed:
 
 (``--noconftest``: the suite's conftest imports the JAX package.)
 """
+import dataclasses
 import importlib.util
 import pathlib
 
@@ -269,33 +270,67 @@ def test_profile_reader_matches_key_averages(gen):
 
 
 SERVE_ARCHS = chip_smoke.SERVE_PATHS
+#: the served reduced configs, and Zamba2 at 5 blocks: 3 applications of the
+#: shared block (the reduced config has one), a ragged last segment.
+SERVE_CASES = SERVE_ARCHS + ("zamba2-1.2b, 5 blocks",)
 
 
-@pytest.mark.parametrize("arch", SERVE_ARCHS)
-def test_serve_fp32_cached_matches_cache_free(gen, arch):
+def _served(case):
+    """The reduced config of ``case``, its params (seeded) and tokens: a
+    64-token prompt and ``FP32_DECODE_STEPS`` more."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    arch, _, blocks = case.partition(", ")
+    cfg = get_config(arch).reduced()
+    if blocks:
+        cfg = dataclasses.replace(cfg, n_layers=int(blocks.split()[0]))
+    params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 64 + chip_smoke.FP32_DECODE_STEPS))).cuda()
+    return cfg, params, tokens
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_serve_fp32_cached_matches_cache_free(gen, case):
     """``chip_smoke.serve_fp32_check`` on the reduced model on the card:
     fp32 prefill and forced decode steps through the kernels against the
     cache-free fp32 forward, within ``serve_tol``, and each planted fault
     outside it."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-
-    cfg = get_config(arch).reduced()
-    params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, size=(2, 64 + chip_smoke.FP32_DECODE_STEPS))).cuda()
+    cfg, params, tokens = _served(case)
     ops.reset_launches()
     out = chip_smoke.serve_fp32_check(cfg, params, tokens, 64, 80)
     assert out["outside"] == 0
+    assert set(out["faults"]) == set(chip_smoke.serve_faults(cfg))
     assert all(f["outside"] > 0 for f in out["faults"].values())
-    assert ops.launches["flash_attention" if cfg.family == "dense" else "wkv6"] > 0
+    for name, n in chip_smoke.serve_launches(cfg, 1).items():
+        assert (ops.launches[name] > 0) == (n > 0), name
+
+
+def _cpu(tree):
+    return {k: _cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("dtype", [f32, bf16])
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_serve_on_the_card_matches_the_cpu(gen, case, dtype):
+    """Prefill and forced decode steps through the kernels on the card
+    against the plain versions on the CPU, on the same params and tokens,
+    within ``serve_tol``: only forced tokens, since one greedy token that
+    differs makes every later step differ."""
+    cfg, params, tokens = _served(case)
+    card = chip_smoke.serve_forced(cfg, params, tokens, 64, 80, dtype)
+    cpu = chip_smoke.serve_forced(cfg, _cpu(params), tokens.cpu(), 64, 80, dtype)
+    torch.testing.assert_close(card.cpu().float(), cpu.float(),
+                               **chip_smoke.serve_tol(cfg, dtype))
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_serve_launches_each_layer_once_per_step(gen, arch):
     """The serving launcher's ``generate`` on the card launches each layer's
-    kernel once in the prefill and once per decode step, and a dense decode
-    past the cache raises."""
+    kernel once in the prefill and once per decode step (Zamba2's attention
+    once per application of its shared block), and a decode past a KV cache
+    raises."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
@@ -306,12 +341,11 @@ def test_serve_launches_each_layer_once_per_step(gen, arch):
     prompts = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device="cuda")
     ops.reset_launches()
     run = generate(model, params, prompts, 5, stream=True)
-    key = "flash_attention" if cfg.family == "dense" else "wkv6"
-    assert ops.launches[key] == cfg.n_layers * 5
+    assert ops.launches == chip_smoke.serve_launches(cfg, 5)
     assert run.tokens.shape == (2, 5) and len(run.step_ms) == 4
     window = generate(model, params, prompts, 5)
     assert torch.equal(window.tokens, run.tokens) and window.step_ms == []
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         _, cache = model.prefill(params, {"tokens": prompts}, max_len=16)
         with pytest.raises(ValueError, match="KV cache overflow"):
             model.decode_step(params, {"tokens": run.tokens[:, :1], "pos": 16,

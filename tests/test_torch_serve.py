@@ -1,17 +1,25 @@
 """The port's serving path against the JAX package's, on the CPU.
 
-Reduced GPT-2 (dense, KV cache) and RWKV-6 (ssm, recurrent state): both
-sides start from the same JAX-initialised params (converted through numpy)
-and see the same tokens, drawn from ``np.random.default_rng``. The
-tolerances are tests/test_kernels.py's, taken from ``chip_smoke.tol`` and
+Reduced GPT-2 (dense, KV cache), RWKV-6 (ssm, recurrent state) and Zamba2
+(hybrid: a KV cache per application of the shared block, and each Mamba2
+block's conv and SSM states), and Zamba2 at 5 blocks (``THREE_APPS``: the
+reduced config applies its shared block once, so only here can the
+applications' caches be told apart): both sides start from the same
+params (the port's init, seeded, carried to JAX through numpy) and see the
+same tokens, drawn from ``np.random.default_rng``. The tolerances are
+tests/test_kernels.py's, taken from ``chip_smoke.tol`` and
 ``chip_smoke.rec_tol``: bf16 ``_tol`` for logits and bf16 caches and
-states, ``_rec_tol`` for the fp32 WKV state; ``chip_smoke.serve_tol`` for
-cached against cache-free logits in one package (``_tol`` for GPT-2,
-``_rec_tol`` for RWKV-6).
+states, ``_rec_tol`` for the fp32 WKV and SSM states;
+``chip_smoke.serve_tol`` for cached against cache-free logits in one
+package (``_tol`` for GPT-2, ``_rec_tol`` for RWKV-6 and Zamba2).
 
 The JAX side of a bf16 comparison runs op by op (``jax.disable_jit``), with
-bf16 ``sigmoid`` and tanh-``gelu`` evaluated in fp32 and rounded once, as
-torch evaluates them (``jax_op_by_op``). Compiled, the JAX forward's
+bf16 ``sigmoid``, tanh-``gelu`` and ``silu`` evaluated in fp32 and rounded
+once, as torch evaluates them (``jax_op_by_op``). ``jax.nn.silu`` is ``x ·
+sigmoid(x)`` with two bf16 roundings, and it calls its module's own
+``sigmoid``, so patching ``jax.nn.sigmoid`` does not reach it: on the CPU
+it differs from torch's ``silu`` by one unit in the last place on many
+bf16 inputs, and Zamba2 calls it twice a Mamba2 block. Compiled, the JAX forward's
 ``lax.scan`` body lets XLA keep fused bf16 elementwise chains in fp32, and
 XLA's CPU backend evaluates bf16 ``sigmoid`` and ``gelu`` with bf16
 intermediates, off the correctly rounded value for a third of bf16 inputs
@@ -23,6 +31,8 @@ forward as much as in serving. Op by op, the two agree bit for bit on
 RWKV-6 and on GPT-2 with Pallas; GPT-2's XLA attention rounds its
 probabilities to bf16 before P·V, where the port's plain version does not.
 """
+import contextlib
+import dataclasses
 import importlib.util
 import os
 import pathlib
@@ -38,18 +48,24 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
+from repro.models import mamba2 as jax_mamba2
 from repro.models import rwkv6 as jax_rwkv6
 from repro.models import transformer as jax_transformer
+from repro.models import zamba2 as jax_zamba2
 from repro_torch import tree as T
 from repro_torch.configs import ShapeCell, get_config
 from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.kernels import wkv6 as W
 from repro_torch.launch import serve
 from repro_torch.models import build_model
-from repro_torch.models import rwkv6
+from repro_torch.models import mamba2, rwkv6, zamba2
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("gpt2", "rwkv6-1.6b")
+ARCHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b")
+#: the reduced Zamba2 at 5 blocks: 3 applications of the shared block and a
+#: ragged last segment (2 + 2 + 1), as the full config's 38 blocks every 6.
+THREE_APPS = "zamba2-1.2b, 5 blocks"
+CASES = ARCHS + (THREE_APPS,)
 B, S, DECODE = 2, 24, 4
 
 
@@ -63,6 +79,15 @@ def _load(rel):
 
 cs = _load("chip_smoke.py")
 BF16, F32 = cs.tol(torch.bfloat16), cs.rec_tol(torch.float32)
+#: the fp32 recurrent states, held at ``_rec_tol``.
+FP32_STATES = ("wkv", "mamba/h")
+
+
+def _reduced(case, get_config):
+    """The reduced config of ``case`` from either package's ``get_config``."""
+    if case == THREE_APPS:
+        return dataclasses.replace(get_config("zamba2-1.2b").reduced(), n_layers=5)
+    return get_config(case).reduced()
 
 
 def _rounded_once(fn):
@@ -76,20 +101,21 @@ def _rounded_once(fn):
 
 @pytest.fixture
 def jax_op_by_op(monkeypatch):
-    """A context that runs the JAX package op by op, with bf16 ``sigmoid``
-    and ``gelu`` rounded once (see the module's docstring)."""
+    """A context that runs the JAX package op by op, with bf16 ``sigmoid``,
+    ``gelu`` and ``silu`` rounded once (see the module's docstring)."""
     monkeypatch.setattr(jax.nn, "sigmoid", _rounded_once(jax.nn.sigmoid))
     monkeypatch.setattr(jax.nn, "gelu", _rounded_once(jax.nn.gelu))
+    monkeypatch.setattr(jax.nn, "silu", _rounded_once(jax.nn.silu))
     return jax.disable_jit
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=CASES)
 def setup(request):
     """Both packages' models on the same params (the port's init, seeded,
     carried to JAX through numpy) and the same tokens."""
-    arch = request.param
-    jmodel = jax_build_model(jax_get_config(arch).reduced())
-    tmodel = build_model(get_config(arch).reduced(), device="cpu")
+    case = request.param
+    jmodel = jax_build_model(_reduced(case, jax_get_config))
+    tmodel = build_model(_reduced(case, get_config), device="cpu")
     tparams = tmodel.init(torch.Generator().manual_seed(1))
     jparams = jax.tree.map(jnp.asarray, state_to_numpy(tparams))
     rng = np.random.default_rng(3)
@@ -99,9 +125,9 @@ def setup(request):
 
 def _close(got, want, path=""):
     """A port tensor against a JAX array: bf16 ``_tol``, or ``_rec_tol``
-    for the fp32 WKV state."""
+    for the fp32 WKV and SSM states."""
     want = np.asarray(want)
-    tol = F32 if path == "wkv" else BF16
+    tol = F32 if path in FP32_STATES else BF16
     assert str(got.dtype).removeprefix("torch.") == str(want.dtype), path
     torch.testing.assert_close(got.float(), torch.from_numpy(want.astype(np.float32)),
                                **tol, msg=lambda m: f"{path}: {m}")
@@ -115,13 +141,101 @@ def _close_tree(got, want):
         _close(leaf, node, "/".join(path))
 
 
+def _jax(tree):
+    """A port tensor, or a tree of them, as JAX arrays."""
+    if isinstance(tree, torch.Tensor):
+        return jnp.asarray(state_to_numpy({"x": tree})["x"])
+    return jax.tree.map(jnp.asarray, state_to_numpy(tree))
+
+
+@contextlib.contextmanager
+def _module_parity(cfg, jcfg, op_by_op, on=True):
+    """For the hybrid family (and ``on``): every Mamba2 block and every application of
+    the shared block that the port runs meanwhile is run again by the JAX
+    package (op by op, through its kernels: Pallas in interpret mode) on the
+    same inputs — params, activations, state or KV cache as the port's
+    module received them — and its output and new state held to the
+    port's: outputs, KV caches and conv state at bf16 ``_tol``, the SSM
+    state at ``_rec_tol``. Yields the list of modules checked. Other
+    families, or not ``on``: nothing. (The tests turn it on in their
+    ``use_pallas`` runs only: the port's side is the same in both.)
+
+    Why module by module: end to end, the two packages' bf16 paths round
+    differently now and then, and Zamba2's depth carries one such rounding
+    into its states beyond bf16 ``_tol`` while the logits stay within it:
+    torch's and XLA's bf16 GEMMs on the CPU sum in different orders, so an
+    output of a projection now and then rounds one unit apart, and the
+    SSD's fp32 sums differ in order before y is rounded to bf16. Why through the JAX
+    kernels: the port always computes their arithmetic, and the JAX XLA
+    attention rounds its probabilities to bf16 first, which moves the
+    shared block's bf16 output by one unit in the last place of its
+    residual sum where that sum nearly cancels."""
+    if cfg.family != "hybrid" or not on:
+        yield []
+        return
+    checked = []
+    block, shared = mamba2.block_apply, zamba2._shared_apply
+
+    def block_parity(lp, x, cfg_, state=None):
+        out, new = block(lp, x, cfg_, state)
+        with op_by_op():
+            jout, jnew = jax_mamba2.block_apply(_jax(lp), _jax(x), jcfg,
+                                                state=_jax(state), use_pallas=True)
+        _close(out, jout, "mamba2 block output")
+        _close_tree({"mamba": new}, {"mamba": jnew})
+        checked.append("mamba2")
+        return out, new
+
+    def shared_parity(sp, x, x0, cfg_, positions, cache_kv=None, cache_pos=None):
+        before = _jax({"k": cache_kv[0], "v": cache_kv[1]})
+        out = shared(sp, x, x0, cfg_, positions, cache_kv, cache_pos)
+        with op_by_op():
+            jout, (jk, jv) = jax_zamba2._shared_apply(
+                _jax(sp), _jax(x), _jax(x0), jcfg, _jax(positions),
+                cache_kv=(before["k"], before["v"]),
+                cache_pos=jnp.asarray(cache_pos, jnp.int32), use_pallas=True)
+        _close(out, jout, "shared block output")
+        _close(cache_kv[0], jk, "attn_k")
+        _close(cache_kv[1], jv, "attn_v")
+        checked.append("shared")
+        return out
+
+    mamba2.block_apply, zamba2._shared_apply = block_parity, shared_parity
+    try:
+        yield checked
+    finally:
+        mamba2.block_apply, zamba2._shared_apply = block, shared
+
+
+def _state_matches(got, want, family):
+    """The port's cache or state against the JAX package's: every leaf at
+    its tolerance; for the hybrid family (held module by module, see
+    ``_module_parity``) the same paths, shapes and dtypes, and ``pos``."""
+    if family != "hybrid":
+        _close_tree(got, want)
+        return
+    jleaves = dict(("/".join(str(k.key) for k in path), leaf) for path, leaf
+                   in jax.tree_util.tree_flatten_with_path(want)[0])
+    tleaves = dict(("/".join(path), leaf) for path, leaf in T.flatten_with_paths(got))
+    assert list(tleaves) == list(jleaves)
+    for path, leaf in tleaves.items():
+        assert tuple(leaf.shape) == jleaves[path].shape, path
+        assert str(leaf.dtype).removeprefix("torch.") == str(jleaves[path].dtype), path
+    assert int(tleaves["pos"]) == int(jleaves["pos"])
+
+
 def _jax_prefill(jmodel, jparams, prompts, max_len, use_pallas):
     """The JAX package's prefill into a cache of ``max_len`` positions, as
-    its serving launcher runs it (its ``Model.prefill`` sizes the cache at
-    the prompt); the ssm state has no length."""
+    its serving launcher runs it for the dense family (its ``Model.prefill``
+    sizes the cache at the prompt); the ssm state has no length."""
     cfg = jmodel.cfg
     if cfg.family == "ssm":
         return jmodel.prefill(jparams, {"tokens": prompts}, use_pallas=use_pallas)
+    if cfg.family == "hybrid":
+        logits, state, _ = jax_zamba2.forward(
+            cfg, jparams, prompts, state=jax_zamba2.make_state(cfg, B, max_len),
+            use_pallas=use_pallas, last_only=True)
+        return logits, state
     logits, cache, _ = jax_transformer.forward(
         cfg, jparams, prompts, cache=jax_transformer.make_cache(cfg, B, max_len),
         cache_pos=jnp.zeros((), jnp.int32), use_pallas=use_pallas, last_only=True)
@@ -131,23 +245,31 @@ def _jax_prefill(jmodel, jparams, prompts, max_len, use_pallas):
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_prefill_matches_jax(setup, jax_op_by_op, use_pallas):
     """(a) ``Model.prefill`` against the JAX ``Model.prefill`` (Pallas in
-    interpret mode with ``use_pallas``): logits and the cache or state."""
+    interpret mode with ``use_pallas``): logits and the cache or state
+    (Zamba2's module by module, ``_module_parity``)."""
     jmodel, jparams, tmodel, tparams, tokens = setup
+    cfg = tmodel.cfg
     with jax_op_by_op():
         jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :S])},
                                 use_pallas=use_pallas)
-    tl, tc = tmodel.prefill(tparams, {"tokens": torch.from_numpy(tokens[:, :S])})
-    assert tl.shape == (B, 1, tmodel.cfg.vocab)
+    with _module_parity(cfg, jmodel.cfg, jax_op_by_op, use_pallas) as checked:
+        tl, tc = tmodel.prefill(tparams, {"tokens": torch.from_numpy(tokens[:, :S])})
+    assert tl.shape == (B, 1, cfg.vocab)
     _close(tl, jl, "logits")
-    _close_tree(tc, jc)
+    _state_matches(tc, jc, cfg.family)
+    if cfg.family == "hybrid" and use_pallas:
+        assert len(checked) == cfg.n_layers + zamba2.n_shared_apps(cfg)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_decode_from_jax_cache_matches_jax(setup, jax_op_by_op, use_pallas):
     """(b) The JAX prefill's cache or state carried into the port, then
     ``DECODE`` teacher-forced ``decode_step``s on both sides, the JAX side
-    eagerly (jitted, its Pallas decode raises at ``int(q_offset)``)."""
+    eagerly (jitted, its Pallas decode raises at ``int(q_offset)``): the
+    logits of each step and the cache or state at the end (Zamba2's module
+    by module, ``_module_parity``)."""
     jmodel, jparams, tmodel, tparams, tokens = setup
+    cfg = tmodel.cfg
     with jax_op_by_op():
         _, jc = _jax_prefill(jmodel, jparams, jnp.asarray(tokens[:, :S]),
                              S + DECODE, use_pallas)
@@ -159,39 +281,64 @@ def test_decode_from_jax_cache_matches_jax(setup, jax_op_by_op, use_pallas):
                 jparams, {"tokens": jnp.asarray(tok),
                           "pos": jnp.asarray(S + t, jnp.int32), "cache": jc},
                 use_pallas=use_pallas)
-        tl, tc = tmodel.decode_step(tparams, {"tokens": torch.from_numpy(tok),
-                                              "pos": S + t, "cache": tc})
+        with _module_parity(cfg, jmodel.cfg, jax_op_by_op, use_pallas) as checked:
+            tl, tc = tmodel.decode_step(tparams, {"tokens": torch.from_numpy(tok),
+                                                  "pos": S + t, "cache": tc})
         _close(tl, jl, f"logits, step {t}")
-    _close_tree(tc, jc)
+        if cfg.family == "hybrid" and use_pallas:
+            assert len(checked) == cfg.n_layers + zamba2.n_shared_apps(cfg)
+    _state_matches(tc, jc, cfg.family)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_fp32_cached_matches_cache_free(arch):
+@pytest.mark.parametrize("case", CASES)
+def test_fp32_cached_matches_cache_free(case):
     """(c) In the port, fp32 prefill + teacher-forced decode against the
     cache-free fp32 forward at every position, within ``serve_tol``; each
     of the family's planted faults leaves that tolerance."""
-    cfg = get_config(arch).reduced()
+    cfg = _reduced(case, get_config)
     params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab, size=(B, S + DECODE)))
     out = cs.serve_fp32_check(cfg, params, toks, S, S + DECODE + 3)
     assert out["outside"] == 0 and out["n_logits"] == B * (DECODE + 1) * cfg.vocab
     assert out["tolerance"] == cs.serve_tol(cfg, torch.float32)
-    assert set(out["faults"]) == set(cs.SERVE_FAULTS[cfg.family])
+    assert set(out["faults"]) == set(cs.serve_faults(cfg))
     assert all(f["outside"] > 0 for f in out["faults"].values())
 
 
-@pytest.mark.parametrize("arch, fault", [(a, f) for a in ARCHS for f in
-                                         cs.SERVE_FAULTS[get_config(a).family]])
-def test_fp32_check_fails_on_a_planted_fault(arch, fault):
+@pytest.mark.parametrize("case, fault", [
+    (c, f) for c in CASES for f in cs.serve_faults(_reduced(c, get_config))])
+def test_fp32_check_fails_on_a_planted_fault(case, fault):
     """(c) The check itself raises when the fault is planted around it."""
-    cfg = get_config(arch).reduced()
+    cfg = _reduced(case, get_config)
     params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab, size=(B, S + DECODE)))
     with cs.planted_fault(fault):
         with pytest.raises(AssertionError, match="differ from the cache-free"):
             cs.serve_fp32_check(cfg, params, toks, S, S + DECODE + 3)
+
+
+def test_jax_conv_context_cast_would_leave_rec_tol(monkeypatch):
+    """Why the port keeps Zamba2's conv context in the forward's dtype: with
+    the JAX block's cast of the new context to bf16 reproduced, the fp32
+    cached logits leave ``serve_tol`` of the cache-free forward (the cast
+    rounds every decode step's context), where the port's pass it."""
+    cfg = get_config("zamba2-1.2b").reduced()
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, size=(B, S + DECODE)))
+    block = mamba2.block_apply
+
+    def jax_cast(lp, x, cfg_, state=None):
+        out, new = block(lp, x, cfg_, state)
+        if new is not None:
+            new = dict(new, conv=new["conv"].to(torch.bfloat16))
+        return out, new
+
+    monkeypatch.setattr(mamba2, "block_apply", jax_cast)
+    with pytest.raises(AssertionError, match="differ from the cache-free"):
+        cs.serve_fp32_check(cfg, params, toks, S, S + DECODE + 3)
 
 
 def test_fp32_state_keeps_the_activation_dtype():
@@ -231,6 +378,18 @@ def test_rounded_once_bf16_sigmoid_and_gelu_match_torch():
         assert off_once < len(x) // 20 and off_torch < len(x) // 20, \
             (name, f"rounded once {off_once}, torch {off_torch}, XLA's own "
              f"{off_jax} off of {len(x)}")
+
+
+def test_rounded_once_bf16_silu_equals_torch():
+    """What ``jax_op_by_op`` relies on for Zamba2: on every bf16 value in
+    [-20, 20], ``jax.nn.silu`` evaluated in fp32 and rounded once
+    (``_rounded_once``) equals torch's bf16 ``silu`` bit for bit."""
+    x = np.unique(np.linspace(-20.0, 20.0, 100001).astype(ml_dtypes.bfloat16))
+    once = np.asarray(_rounded_once(jax.nn.silu)(jnp.asarray(x)))
+    tx = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    got = state_to_numpy({"y": torch.nn.functional.silu(tx)})["y"]
+    assert once.dtype == got.dtype == ml_dtypes.bfloat16
+    assert np.array_equal(once.view(np.uint16), got.view(np.uint16))
 
 
 def test_decode_past_the_cache_raises():
@@ -297,12 +456,6 @@ def test_full_size_specs_match_jax(arch):
         specs(jmodel.input_specs(prefill), True)
 
 
-def test_hybrid_serving_is_not_ported():
-    model = build_model(get_config("zamba2-1.2b").reduced(), device="meta")
-    with pytest.raises(NotImplementedError, match="Zamba2 serving"):
-        model.cache_specs(1, 8)
-
-
 def test_wkv6_decode_matches_jax_and_the_chunked_form():
     """(f) ``wkv6_decode`` against the JAX ``wkv6_decode`` and the plain
     chunked form at S = 1, fp32 ``_rec_tol``, from a nonzero state, with
@@ -356,6 +509,17 @@ def test_serving_entry_points_print_serve_ok(capsys):
     assert capsys.readouterr().out.rstrip().endswith("SERVE_OK")
 
 
+def test_zamba2_serving_entry_points_print_serve_ok(capsys):
+    """(h) The launcher and the example serve the hybrid family on the CPU."""
+    assert serve.main(["--arch", "zamba2-1.2b", "--requests", "1", "--tokens", "4",
+                       "--device", "cpu"]) == 0
+    assert _load("examples/torch_serve.py").main(
+        ["--arch", "zamba2-1.2b", "--tokens", "4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("req 0: ") and out[1] == "SERVE_OK"
+    assert out[2].startswith("arch=zamba2-1.2b-reduced") and out[-1] == "SERVE_OK"
+
+
 def test_serve_launcher_lines(capsys):
     """The launcher's per-request lines, as the JAX launcher prints them."""
     assert serve.main(["--arch", "rwkv6-1.6b", "--requests", "2", "--tokens", "4",
@@ -398,12 +562,12 @@ def test_generate_streams_or_times_one_window(arch, monkeypatch):
 
 def test_serving_entry_points_need_cuda_without_device(monkeypatch):
     """(h) Without ``--device`` they run on CUDA, and raise where there is
-    none; an arch of an unserved family or an unported arch exits non-zero."""
+    none, for every served family; an unported arch exits non-zero."""
     example = _load("examples/torch_serve.py")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main in (serve.main, example.main):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            main(["--arch", "gpt2"])
-        assert main(["--arch", "zamba2-1.2b", "--device", "cpu"]) != 0
+        for arch in ARCHS:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(["--arch", arch])
         assert main(["--arch", "tinyllama-1.1b", "--device", "cpu"]) != 0
 

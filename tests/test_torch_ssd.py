@@ -246,3 +246,28 @@ def test_single_bf16_operands_would_leave_rec_tol():
 
     assert excess(_ssd_bf16_kernel_emulation(*args)[0]) <= 0
     assert excess(_ssd_bf16_kernel_emulation(*args, operand=_bf16)[0]) > 0
+
+
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_decode_steps_from_a_state(S):
+    """A serving decode runs the scan at S = 1 (and a few steps) from the
+    carried state: ``ssd_plain`` (at the chunk ``ops.ssd`` gives it) against
+    the XLA ``ssd_chunked``, the Pallas kernel in interpret mode and the
+    sequential oracle, fp32 at ``_rec_tol``; on bf16 x/B/C the bf16
+    kernel's arithmetic (its one 64-row chunk, zero-filled past S) against
+    ``ssd_plain`` at ``_rec_tol``(bf16). Zamba2's P and N (64, 64)."""
+    x, dt, A_log, Bm, Cm, st = _inputs((2, S, 3, 64, 64), seed=40 + S)
+    y, hf = SD.ssd_plain(*(_torch(a) for a in (x, dt, A_log, Bm, Cm, st)), chunk=64)
+    jargs = [_jax(a) for a in (x, dt, A_log, Bm, Cm)]
+    refs = [ssd_chunked(*jargs, state=_jax(st)),
+            jax_ssd_kernel(*jargs, state=_jax(st), chunk=64),
+            R.ssd_ref(*jargs, state=_jax(st))]
+    for ry, rh in refs:
+        np.testing.assert_allclose(y.numpy(), np.asarray(ry), **_rec_tol("float32"))
+        np.testing.assert_allclose(hf.numpy(), np.asarray(rh), **_rec_tol("float32"))
+    args = (_torch(x, "bfloat16"), _torch(dt), _torch(A_log),
+            _torch(Bm, "bfloat16"), _torch(Cm, "bfloat16"), _torch(st))
+    ey, eh = _ssd_bf16_kernel_emulation(*args)
+    py, ph = SD.ssd_plain(*args, chunk=64)
+    torch.testing.assert_close(ey, py, **_rec_tol("bfloat16"))
+    torch.testing.assert_close(eh, ph, **_rec_tol("bfloat16"))

@@ -182,3 +182,54 @@ def test_replication_manifest_matches_jax(setup):
             for e in tm.entries] == \
         [(e.path, tuple(e.shape), e.dtype, e.offset, e.nbytes)
          for e in jm.entries]
+
+
+def test_prefill_state_path_is_the_training_forward():
+    """From a zero state into a cache the prompt fills, the serving forward
+    computes what the training forward computes (the same K/V attended, a
+    zero conv context, a zero initial SSM state): logits bit for bit."""
+    cfg = get_config(ARCH).reduced()
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(2))
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want, _ = zamba2.forward(cfg, params, toks)
+        got, state, _ = zamba2.forward(cfg, params, toks, last_only=True,
+                                       state=zamba2.make_state(cfg, 2, 16))
+    assert torch.equal(got, want[:, -1:])
+    assert int(state["pos"]) == 16 and state["pos"].dtype == torch.int32
+
+
+def test_conv_and_ssm_states_carry_a_sequence_split_in_two():
+    """A Mamba2 block over 12 positions, run as 7 then 5 with the state
+    carried, equals one run over all 12 (fp32: the conv bit for bit, the
+    SSD's chunked sums within ``_rec_tol``), against the JAX block too."""
+    from repro.models import mamba2 as jax_mamba2
+    from repro_torch.models import mamba2
+
+    cfg = get_config(ARCH).reduced()
+    lp = T.unstack(build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(4))["mamba"], cfg.n_layers)[0]
+    x = torch.randn((2, 12, cfg.d_model), generator=torch.Generator().manual_seed(5))
+    st = mamba2.block_state(cfg, 2, dtype=torch.float32)
+    with torch.no_grad():
+        whole, end = mamba2.block_apply(lp, x, cfg, state=st)
+        first, mid = mamba2.block_apply(lp, x[:, :7], cfg, state=st)
+        second, end2 = mamba2.block_apply(lp, x[:, 7:], cfg, state=mid)
+    tol = dict(rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(torch.cat([first, second], dim=1), whole, **tol)
+    assert torch.equal(end2["conv"], end["conv"]) and end["conv"].dtype == torch.float32
+    torch.testing.assert_close(end2["h"], end["h"], **tol)
+    jlp = jax.tree.map(jnp.asarray, state_to_numpy(lp))
+    jst = {"h": jnp.zeros(st["h"].shape, jnp.float32),
+           "conv": jnp.zeros(st["conv"].shape, jnp.float32)}
+    jout, jend = jax_mamba2.block_apply(jlp, jnp.asarray(x.numpy()),
+                                        jax_get_config(ARCH).reduced(),
+                                        state=jst, use_pallas=True)
+    np.testing.assert_allclose(whole.numpy(), np.asarray(jout), **tol)
+    np.testing.assert_allclose(end["h"].numpy(), np.asarray(jend["h"]), **tol)
+    # The JAX block returns its context in bf16 whatever the forward's dtype.
+    assert jend["conv"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(
+        end["conv"].to(torch.bfloat16).float().numpy(),
+        np.asarray(jend["conv"]).astype(np.float32))
