@@ -78,7 +78,21 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    leaf by leaf; the decode shapes of attention (GPT-2's and Zamba2's,
    beside ``scaled_dot_product_attention``), WKV6 and SSD as device time
    per launch, one input set per layer (per application of Zamba2's
-   shared block).
+   shared block);
+6. the simulator substrate (``repro_torch.core``: topology on a stdlib
+   graph, the event simulator, the cluster monitor, the negotiation
+   protocols, the baselines), host Python that launches no kernel:
+   ``simulator_sweep`` (every strategy over the paper's GPT-2 and
+   ResNet-101 state profiles on 6-12-node random overlays, seeds 0-3,
+   codecs none and int8, the planner's charge pinned; scale-in,
+   connect-link and disconnect-link; a monitor run per detector with a
+   node fault, a link fault and 30% loss; the multi-source plans on
+   ``pod_topology(32)``) held to the pinned ``SIMULATOR_DIGEST``; the same
+   scale-outs with the planner's time measured give the paper's tables
+   (mean delay and idle per strategy and cluster size, the primitives'
+   largest delay, each under 1 ms), all in the simulator's virtual
+   seconds; a join of GPT-2's fp32 state under int8 beside the codec's
+   modelled charge and the codec kernels' device time from phase 5.
 
     python3 chip_smoke.py --baseline DIR
 
@@ -88,7 +102,8 @@ commit, unpacked), on the same inputs, in turns with this checkout's
 (baseline, kernel, kernel, baseline).
 
 It prints one JSON line per kernel, per path, for the self-healing phase,
-for the launcher and per serving run, the ``kernels`` line (launches summed
+for the launcher and per serving run, the ``simulator`` line, the
+``kernels`` line (launches summed
 over the paths, the self-healing replay, the launcher's in-process runs and
 the serving runs), the card's
 name and power limit from ``nvidia-smi``, and last the line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -98,6 +113,7 @@ no result.
 import bisect
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import os
@@ -2279,6 +2295,274 @@ def time_baseline(old, gen, shapes):
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the simulator substrate (host Python; no kernel).
+# ---------------------------------------------------------------------------
+
+MiB = 1024 * 1024
+#: The paper's state profiles (``benchmarks/common.py``: GPT-2 and
+#: ResNet-101): (name, training-state bytes, typical tensor bytes).
+SIM_PROFILES = (("gpt2", 468 * MiB, 4 * MiB), ("resnet101", 178 * MiB, 2 * MiB))
+SIM_NODES = (6, 8, 10, 12)
+SIM_SEEDS = (0, 1, 2, 3)
+SIM_CODECS = ("none", "int8")
+#: The pinned charge for Algorithm 1+2 on the virtual clock in the digest's
+#: sweep (``ChaosScheduler.solver_time_model``); the tables measure it.
+SIM_SOLVER_S = 1e-3
+#: Virtual seconds of each monitor run, and its injected 30% link loss.
+SIM_MONITOR_S = 60.0
+SIM_LOSS = 0.3
+
+#: sha256 of ``simulator_sweep``'s canonical JSON; tests/test_torch_simulator.py
+#: runs the sweep through the JAX package and holds it to this value, so the
+#: port's substrate on the GPU machine is held to the reference without JAX.
+SIMULATOR_DIGEST = (
+    "19a1d4dfc3503acd262002255826619b8d1ffef82314b39cf03cddfd2fc4e8ad")
+
+
+def sim_tensor_sizes(state_bytes, typ):
+    """``benchmarks/common.tensor_sizes_for``."""
+    n = max(4, state_bytes // typ)
+    sizes = [typ] * n
+    rest = state_bytes - typ * n
+    if rest > 0:
+        sizes.append(rest)
+    return sizes
+
+
+def sim_join_links(core, topo, n_links, seed):
+    """``benchmarks/common.join_links``: ``n_links`` random peers of the
+    active nodes, each link drawn at 100-1000 Mbit/s and 1-20 ms."""
+    import random
+
+    rng = random.Random(seed)
+    peers = rng.sample(sorted(topo.active_nodes()),
+                       min(n_links, len(topo.active_nodes())))
+    return {p: core.topology.Link(rng.uniform(100, 1000), rng.uniform(0.001, 0.02))
+            for p in peers}
+
+
+def _plan_record(plan):
+    return {"summary": plan.summary(),
+            "routes": {str(u): r for u, r in sorted(plan.routes.items())}}
+
+
+def _scale_out_record(res):
+    if hasattr(res, "breakdown"):  # Pollux: stop-resume, no plan
+        return {"delay_s": res.delay_s, "idle_s": res.idle_s,
+                "breakdown": res.breakdown}
+    return {"delay_s": res.delay_s, "replication_s": res.replication_s,
+            "solver_s": res.solver_s, "idle_s": res.idle_s,
+            "timeline": res.timeline, "replans": res.replans,
+            **_plan_record(res.plan)}
+
+
+def _primitive_record(res):
+    return {"delay_s": res.delay_s, "wall_s": res.wall_s,
+            "timeline": res.timeline, "detection_s": res.detection_s}
+
+
+def sim_scale_outs(core, solver_s):
+    """Every profile, cluster size, seed, strategy of ``baselines.STRATEGIES``
+    and codec: a join over 3 links after two iterations, as
+    ``benchmarks/common.measure_scale_out`` draws it. ``solver_s`` pins
+    the planner's charge; None measures it. Yields (key, result)."""
+    B = core.baselines
+    for name, state, typ in SIM_PROFILES:
+        sizes = sim_tensor_sizes(state, typ)
+        for n in SIM_NODES:
+            for seed in SIM_SEEDS:
+                for strategy in B.STRATEGIES:
+                    for codec in SIM_CODECS:
+                        topo = core.topology.random_edge_topology(n, seed=seed)
+                        cl = B.make_cluster(topo, state_bytes=state,
+                                            tensor_sizes=sizes,
+                                            strategy=strategy, codec=codec)
+                        cl.scheduler.solver_time_model = solver_s
+                        cl.train(2)
+                        new = 1000 + seed
+                        links = sim_join_links(core, topo, 3, seed + 7)
+                        _, _, res = B.run_scale_out(cl, strategy, new, links,
+                                                    state)
+                        yield (name, n, seed, strategy, codec), res
+
+
+def sim_primitives(core, n, seed):
+    """Scale-in, connect-link and disconnect-link on one topology, as
+    tests/test_simulator.py runs them, and the topology's snapshot after."""
+    name, state, typ = SIM_PROFILES[0]
+    topo = core.topology.random_edge_topology(n, seed=seed)
+    cl = core.baselines.make_cluster(topo, state_bytes=state,
+                                     tensor_sizes=sim_tensor_sizes(state, typ),
+                                     strategy="chaos")
+    cl.train(1)
+    victim = [u for u in topo.active_nodes() if u != cl.scheduler.node][0]
+    out = {"scale_in": _primitive_record(cl.scale_in(victim))}
+    nodes = topo.active_nodes()
+    u, v = nodes[0], nodes[-1]
+    if topo.has_link(u, v):
+        topo.remove_link(u, v)
+    out["connect_link"] = _primitive_record(
+        cl.connect_link(u, v, core.topology.Link(500, 0.005)))
+    out["disconnect_link"] = _primitive_record(cl.disconnect_link(u, v))
+    out["snapshot"] = topo.snapshot()
+    return out
+
+
+def sim_monitor_run(core, detector, seed):
+    """The cluster monitor on an 8-node topology after one iteration:
+    sweeps started with ``seed``, then a silent node fault 5 s later, a
+    blackholed link at 10 s and ``SIM_LOSS`` loss on another link at 15 s,
+    run for ``SIM_MONITOR_S`` virtual seconds; detections scale in and
+    disconnect through the scheduler. Returns the event records and
+    counters."""
+    name, state, typ = SIM_PROFILES[0]
+    topo = core.topology.random_edge_topology(8, seed=seed)
+    cl = core.baselines.make_cluster(topo, state_bytes=state,
+                                     tensor_sizes=sim_tensor_sizes(state, typ),
+                                     strategy="chaos")
+    cl.train(1)
+    mon = cl.scheduler.monitor
+    mon.start_sweeps(seed=seed, detector=detector)
+    victim = max(u for u in topo.active_nodes() if u != cl.scheduler.node)
+    edges = sorted((min(a, b), max(a, b)) for a, b in topo.g.edges
+                   if victim not in (a, b))
+    t0 = cl.sim.now
+    cl.sim.at(t0 + 5.0, lambda: mon.inject_node_fault(victim))
+    cl.sim.at(t0 + 10.0, lambda: mon.inject_link_fault(*edges[0]))
+    cl.sim.at(t0 + 15.0, lambda: mon.inject_link_loss(*edges[-1], SIM_LOSS))
+    cl.sim.run(until=t0 + SIM_MONITOR_S)
+    return {"events": [[e.t, e.kind, list(e.subject), e.detail]
+                       for e in mon.events],
+            "monitor": mon.metrics_snapshot(),
+            "network": cl.net.metrics_snapshot(),
+            "snapshot": topo.snapshot()}
+
+
+def sim_pod_plans(core):
+    """The multi-source plan into every host of ``pod_topology(32)``: its
+    routes cross ties that only the bidirectional search breaks as the
+    reference does."""
+    name, state, typ = SIM_PROFILES[0]
+    topo = core.topology.pod_topology(32)
+    sizes = sim_tensor_sizes(state, typ)
+    return [_plan_record(core.plans.build_plan("multi-source", topo, new,
+                                               state, sizes))
+            for new in range(32)]
+
+
+def simulator_sweep(core):
+    """The substrate's deterministic outputs through ``core``, a namespace
+    holding the ``topology``, ``baselines`` and ``plans`` modules of either
+    package: the scale-out sweep with the planner's charge pinned, the
+    primitives and reshuffled snapshot of every topology, a monitor run
+    per detector and the pod plans."""
+    out = {"scale_outs": {"|".join(map(str, key)): _scale_out_record(res)
+                          for key, res in sim_scale_outs(core, SIM_SOLVER_S)}}
+    for n in SIM_NODES:
+        for seed in SIM_SEEDS:
+            prim = sim_primitives(core, n, seed)
+            topo = core.topology.random_edge_topology(n, seed=seed)
+            core.topology.reshuffle_bandwidths(topo, seed=seed + 100)
+            prim["reshuffled"] = topo.snapshot()
+            out[f"topology|{n}|{seed}"] = prim
+    for detector in ("phi", "fixed"):
+        out[f"monitor|{detector}"] = sim_monitor_run(core, detector, seed=0)
+    out["pod_multi_source"] = sim_pod_plans(core)
+    return out
+
+
+def sweep_digest(sweep):
+    blob = json.dumps(sweep, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def simulator_phase(ops, gpt2_leaf_bytes, codec_times):
+    """Phase 6: the port's simulator substrate on this host. The pinned
+    sweep's digest; the paper's tables with the planner's time measured
+    (virtual seconds from the simulator, not card time); a join of GPT-2's
+    fp32 state under int8 beside the codec kernels' device time. Launches
+    no kernel."""
+    import statistics
+
+    from repro_torch.core import baselines, codec, plans, topology
+    from repro_torch import core
+
+    for name in ("networkx", "jax", "repro"):
+        if name in sys.modules:
+            raise AssertionError(f"the simulator phase imported {name}")
+    before = dict(ops.launches)
+    t0 = time.perf_counter()
+    digest = sweep_digest(simulator_sweep(core))
+    if digest != SIMULATOR_DIGEST:
+        raise AssertionError(f"simulator sweep digest {digest} != "
+                             f"SIMULATOR_DIGEST {SIMULATOR_DIGEST}")
+    t_digest = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    delays, idles, solver = {}, {}, []
+    for (name, n, seed, strategy, cname), res in sim_scale_outs(core, None):
+        if cname != "none":
+            continue
+        key = f"{name}|{strategy}|{n}"
+        delays.setdefault(key, []).append(res.delay_s)
+        idles.setdefault(key, []).append(sum(res.idle_s.values()))
+        if strategy != "pollux":
+            solver.append(res.solver_s)
+    table_i = {"scale_in": 0.0, "connect_link": 0.0, "disconnect_link": 0.0}
+    for n in SIM_NODES:
+        for seed in SIM_SEEDS:
+            prim = sim_primitives(core, n, seed)
+            for k in table_i:
+                table_i[k] = max(table_i[k], prim[k]["delay_s"])
+    for k, d in table_i.items():
+        if not d < 1e-3:
+            raise AssertionError(f"{k} took {d} virtual s, not under 1 ms")
+    t_tables = time.perf_counter() - t1
+
+    state = sum(gpt2_leaf_bytes)
+    topo = topology.random_edge_topology(8, seed=0)
+    cl = baselines.make_cluster(topo, state_bytes=state,
+                                tensor_sizes=gpt2_leaf_bytes,
+                                strategy="chaos", codec="int8")
+    cl.train(2)
+    res = cl.scale_out(1000, sim_join_links(core, topo, 3, 7))
+    join = {
+        "state_bytes": state, "leaves": len(gpt2_leaf_bytes),
+        "delay_s": res.delay_s, "replication_s": res.replication_s,
+        "sources": len(res.plan.sources),
+        "model_encode_s": codec.encode_s("int8", state),
+        "model_decode_s": codec.decode_s("int8", state),
+        "model_stream_encode_s": max(codec.encode_s(res.plan.codec_for(u), b)
+                                     for u, b in res.plan.sources.items()),
+        "model_stream_decode_s": max(codec.decode_s(res.plan.codec_for(u), b)
+                                     for u, b in res.plan.sources.items()),
+        "card_encode_device_ms": codec_times[0].get("device_ms"),
+        "card_decode_device_ms": codec_times[1].get("device_ms"),
+    }
+    if dict(ops.launches) != before:
+        raise AssertionError(f"the simulator phase launched kernels: "
+                             f"{before} -> {dict(ops.launches)}")
+    summary = {
+        "digest": digest, "digest_s": t_digest, "tables_s": t_tables,
+        "host_s": time.perf_counter() - t0,
+        "virtual_mean_delay_s": {k: statistics.fmean(v) for k, v in delays.items()},
+        "virtual_mean_idle_s": {k: statistics.fmean(v) for k, v in idles.items()},
+        "virtual_table_i_max_s": table_i,
+        "solver_s_median": statistics.median(solver),
+        "solver_s_max": max(solver), "solver_runs": len(solver),
+        "gpt2_int8_join": join,
+    }
+    log(f"simulator substrate: digest {digest} held; Table I (virtual s) "
+        f"{json.dumps(table_i)}; solver_s median {summary['solver_s_median']:.6f} "
+        f"max {summary['solver_s_max']:.6f} over {len(solver)} plans; "
+        f"GPT-2 int8 join {res.delay_s:.4f} virtual s, modelled encode "
+        f"{join['model_encode_s']:.4f} s / decode {join['model_decode_s']:.4f} s "
+        f"for the whole state against the card's {_ms(join['card_encode_device_ms'])}"
+        f" / {_ms(join['card_decode_device_ms'])}; host {summary['host_s']:.1f} s")
+    return summary
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -2347,6 +2631,8 @@ def main():
         if name == "gpt2":
             times["shard_encode"], times["shard_decode"] = time_codec(
                 codec, trainer.state)
+            gpt2_leaf_bytes = [leaf.numel() * 4 for leaf in T.leaves(trainer.state)
+                               if leaf.dtype == torch.float32]
             if old is not None:
                 leaves = [leaf for leaf in T.leaves(trainer.state)
                           if leaf.dtype == torch.float32]
@@ -2402,6 +2688,10 @@ def main():
         bound_ms, bound_by = t.pop("bound")
         log(json.dumps({"kernel_decode": name, **t, "bound_ms": bound_ms,
                         "bound_by": bound_by}))
+
+    # Phase 6: the simulator substrate, beside the codec's device times.
+    simulator = simulator_phase(ops, gpt2_leaf_bytes,
+                                (times["shard_encode"], times["shard_decode"]))
     rows = [
         ("shard_encode", "src/repro_torch/csrc/shard_codec.cu",
          "src/repro/kernels/shard_codec.py:46"),
@@ -2431,6 +2721,7 @@ def main():
                         **{key: t[key] for key in (
                             "device_ms", "baseline_device_ms") if key in t},
                         "launches": launches[name]}))
+    print(json.dumps({"simulator": simulator}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,7 @@ invariant the engine tests pin down.
 """
 from __future__ import annotations
 
-#: bytes per second per Mbit/s (``repro/core/topology.py``; inlined because
-#: that module needs networkx).
-MBPS = 1e6 / 8.0
+from repro_torch.core.topology import MBPS
 
 #: quantization block: one fp32 scale per 256 elements (kernels/shard_codec).
 Q_BLOCK = 256

@@ -11,10 +11,11 @@ deterministic ledger and the engine loop that drives a backend.
   backend; the port's backend is ``repro_torch.elastic.TrainerBackend``,
   which replays a trace against the real ``ElasticTrainer``.
 
-Not ported here: ``ChurnEvent.link_objects`` (it builds ``topology.Link``
-objects, and the topology is not ported), and ``SimBackend`` with the
-simulator entry points that follow it in the JAX module (``run_trace_sim``,
-``run_trace_goodput``); they come with the simulator substrate.
+Not ported here: ``SimBackend`` and the simulator entry points that follow
+it in the JAX module (``run_trace_sim``, ``run_trace_goodput``); they need
+the decentralized control plane (``repro/core/control.py``), which is not
+ported yet. ``ChurnEvent.link_objects`` builds the port's ``topology.Link``
+objects for the simulator (``core.negotiation.SimCluster``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.core.plans import RESHARD_MODES
 from repro_torch.core.recovery import RECOVERY_ACTIONS
+from repro_torch.core.topology import Link
 
 EVENT_KINDS = ("join", "leave", "node-failure",
                "link-join", "link-leave", "link-failure", "link-degrade",
@@ -140,6 +142,9 @@ class ChurnEvent:
                    new_shape=(tuple(int(s) for s in d["new_shape"])
                               if "new_shape" in d else None),
                    recovery=d.get("recovery"))
+
+    def link_objects(self) -> Dict[int, Link]:
+        return {p: Link(bw, lat) for p, (bw, lat) in (self.links or {}).items()}
 
 
 @dataclass

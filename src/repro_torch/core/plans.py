@@ -1,19 +1,26 @@
-"""Replication and parallelism plans, from ``repro/core/plans.py``.
+"""Replication and parallelism plans, copied from ``repro/core/plans.py``:
+the one replication-plan path (paper §III problems P1–P3, Algorithms 1–2;
+§IV-B peer negotiation consumes the plans; §VI-F ablations).
 
-Ported: ``plan_assignment`` (Algorithm 1 over the auto-dispatched
-Algorithm 2; ``replication.plan_replication`` calls it on every scale-out),
-``ReplicationPlan`` and the parallelism-plan (reshard) layer:
-``ParallelismPlan``, ``candidate_plans``, ``replicated_fraction``,
-``ReshardPolicy``, ``default_reshard_policy``, ``reshard_moved_bytes``,
-``ReshardPlan``, ``reshard_plan``, ``decide_reshard`` and
-``trim_tensor_sizes``. The recovery-policy layer (``core.recovery``) and the
-trainer's churn backend decide layouts through them.
+Every component that turns "node X needs the training state" into "which
+source sends which bytes over which route" goes through this module: the
+simulator's scheduler (``negotiation.py``), the churn pipeline
+(``engine.py``), the elastic trainer (``replication.plan_replication``) and
+the recovery-policy layer (``core.recovery``).
 
-Not ported: the ``Topology``-based whole-plan constructors (``chaos_plan`` and
-its baselines, ``measured_neighbors``, ``build_plan``); the topology and
-the simulator that use them are not ported. ``reshard_plan`` takes any
-object with the topology's link queries (``has_link``, ``link``,
-``has_path``, ``shortest_path``, ``path_delay_per_byte``).
+``plan_assignment`` is the canonical Algorithm 1+2 entry point: Algorithm 1
+binary-searches the shard size s, Algorithm 2 greedily assigns shards to
+neighbors by least estimated load. The ``Topology``-based whole-plan
+builders (``measured_neighbors``, ``chaos_plan``, ``chaos_even_plan``,
+``single_source_plan``, ``multi_source_plan``, ``build_plan``) run on the
+port's own ``core.topology``, as does ``reshard_plan``. The parallelism-plan
+(reshard) layer: ``ParallelismPlan``, ``candidate_plans``,
+``replicated_fraction``, ``ReshardPolicy``, ``default_reshard_policy``,
+``reshard_moved_bytes``, ``ReshardPlan``, ``reshard_plan``,
+``decide_reshard`` and ``trim_tensor_sizes``.
+
+Every function is kept operation for operation, so plans, routes and
+summaries equal the JAX package's.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from repro_torch.core.sharding_alg import (
     NeighborLink,
     auto_greedy_solver,
     binary_search_assignment,
+    even_assignment,
 )
+from repro_torch.core.topology import Topology
 
 
 @dataclass
@@ -54,14 +63,28 @@ class ReplicationPlan:
     codecs: Dict[int, str] = field(default_factory=dict)  # source -> codec
     wire_sources: Dict[int, int] = field(default_factory=dict)  # source -> wire bytes
 
+    def codec_for(self, u: int) -> str:
+        return self.codecs.get(u, wire_codec.CODEC_NONE)
+
     def wire_for(self, u: int):
         """Wire bytes for source ``u`` (== payload bytes under ``none``)."""
         if u in self.wire_sources:
             return self.wire_sources[u]
         return self.sources.get(u, 0)
 
+    def wire_shard_for(self, u: int) -> int:
+        """Credit granularity on the wire for source ``u``: each payload
+        shard is encoded independently, so one wire shard is
+        ``wire_bytes(codec, shard_size)`` framed bytes."""
+        if self.shard_size <= 0:
+            return 0
+        return int(wire_codec.wire_bytes(self.codec_for(u), self.shard_size))
+
     def codec_active(self) -> bool:
         return any(c != wire_codec.CODEC_NONE for c in self.codecs.values())
+
+    def total_wire_bytes(self):
+        return sum(self.wire_for(u) for u in self.sources)
 
     def summary(self) -> dict:
         """Deterministic dict for event ledgers (sorted keys, ints/floats).
@@ -89,6 +112,39 @@ def plan_assignment(
                                     solver=auto_greedy_solver, **kw)
 
 
+def measured_neighbors(
+    topo: Topology, new_node: int, sync: Optional[Dict[int, float]] = None
+) -> Dict[int, NeighborLink]:
+    """Monitor measurement of direct neighbors (iperf stand-in, §IV-A)."""
+    out = {}
+    for u in topo.neighbors(new_node):
+        l = topo.link(u, new_node)
+        out[u] = NeighborLink(l.latency_s, l.trans_delay_per_byte,
+                              (sync or {}).get(u, 0.0))
+    return out
+
+
+def _negotiated_codecs(
+    topo: Topology, new_node: int, neighbors: Sequence[int], codec: str
+) -> Dict[int, str]:
+    """Per-neighbor codec negotiation over the measured direct links."""
+    return {u: wire_codec.negotiate(codec,
+                                    topo.link(u, new_node).bandwidth_mbps)
+            for u in neighbors}
+
+
+def _derated_neighbors(
+    nb: Dict[int, NeighborLink], codecs: Dict[int, str]
+) -> Dict[int, NeighborLink]:
+    """Planner view of the links under the negotiated codecs: per-payload-byte
+    time shrinks by the wire ratio and grows by the amortized encode/decode
+    compute, so Algorithm 1+2 loads sources codec-aware."""
+    return {u: NeighborLink(
+        l.prop_s,
+        wire_codec.effective_trans_s_per_byte(codecs[u], l.trans_s_per_byte),
+        l.sync_s) for u, l in nb.items()}
+
+
 def _wire_fields(sources: Dict[int, int], codecs: Dict[int, str],
                  shard_size: int) -> Tuple[Dict[int, str], Dict[int, int]]:
     """(codecs, wire_sources) for a plan — both empty when every negotiated
@@ -110,6 +166,141 @@ def _wire_fields(sources: Dict[int, int], codecs: Dict[int, str],
         else:
             wire[u] = int(wire_codec.wire_bytes(c, nbytes))
     return active, wire
+
+
+def chaos_plan(
+    topo: Topology, new_node: int, state_bytes: int,
+    tensor_sizes: Sequence[int], sync: Optional[Dict[int, float]] = None,
+    solver=plan_assignment, codec: str = wire_codec.CODEC_NONE,
+) -> ReplicationPlan:
+    """Multi-neighbor replication with Algorithm 1+2 shard scheduling."""
+    nb = measured_neighbors(topo, new_node, sync)
+    codecs = _negotiated_codecs(topo, new_node, list(nb), codec)
+    planner_nb = (nb if all(c == wire_codec.CODEC_NONE for c in codecs.values())
+                  else _derated_neighbors(nb, codecs))
+    asg = solver(tensor_sizes, planner_nb)
+    sources = {u: len(ks) * asg.shard_size for u, ks in
+               asg.shards_per_neighbor.items() if ks}
+    routes = {u: [u, new_node] for u in sources}
+    cds, wire = _wire_fields(sources, codecs, int(asg.shard_size))
+    return ReplicationPlan("chaos", sources, routes, asg.completion_s,
+                           shard_size=int(asg.shard_size),
+                           codecs=cds, wire_sources=wire)
+
+
+def chaos_even_plan(topo, new_node, state_bytes, tensor_sizes, sync=None,
+                    codec: str = wire_codec.CODEC_NONE):
+    """Multi-neighbor replication with *even* shards (ablation variant)."""
+    nb = measured_neighbors(topo, new_node, sync)
+    codecs = _negotiated_codecs(topo, new_node, list(nb), codec)
+    planner_nb = (nb if all(c == wire_codec.CODEC_NONE for c in codecs.values())
+                  else _derated_neighbors(nb, codecs))
+    k = len(nb)
+    s = math.ceil(state_bytes / k)
+    asg = even_assignment(k, s, planner_nb)
+    sources = {u: len(ks) * s for u, ks in asg.shards_per_neighbor.items() if ks}
+    cds, wire = _wire_fields(sources, codecs, int(s))
+    return ReplicationPlan("multi-neighbor-even", sources,
+                           {u: [u, new_node] for u in sources}, asg.completion_s,
+                           shard_size=int(s), codecs=cds, wire_sources=wire)
+
+
+def single_source_plan(
+    topo: Topology, new_node: int, state_bytes: int, sync=None,
+    codec: str = wire_codec.CODEC_NONE,
+) -> ReplicationPlan:
+    """EDL+ [13]/Elan [14]: pull everything from the fastest neighbor."""
+    nb = measured_neighbors(topo, new_node, sync)
+    if not nb:
+        raise ValueError("new node has no neighbors")
+    codecs = _negotiated_codecs(topo, new_node, list(nb), codec)
+    best_u, best_t = None, float("inf")
+    for u, l in nb.items():
+        per = wire_codec.effective_trans_s_per_byte(codecs[u],
+                                                    l.trans_s_per_byte)
+        t = l.prop_s + l.sync_s + state_bytes * per
+        if t < best_t:
+            best_u, best_t = u, t
+    cds, wire = _wire_fields({best_u: state_bytes}, codecs, 0)
+    return ReplicationPlan("single-source", {best_u: state_bytes},
+                           {best_u: [best_u, new_node]}, best_t,
+                           codecs=cds, wire_sources=wire)
+
+
+def multi_source_plan(
+    topo: Topology, new_node: int, state_bytes: int, sync=None,
+    codec: str = wire_codec.CODEC_NONE,
+) -> ReplicationPlan:
+    """Autoscaling [18]: even shards from ALL active nodes, routed along
+    shortest paths — multi-hop forwards included (Fig 1c pathology)."""
+    others = [n for n in topo.active_nodes()
+              if n != new_node and topo.has_path(n, new_node)]
+    if not others:
+        raise ValueError("no sources")
+    share = math.ceil(state_bytes / len(others))
+    sources, routes, codecs = {}, {}, {}
+    link_load: Dict[Tuple[int, int], float] = {}
+    worst_path = 0.0
+    for u in others:
+        path = topo.shortest_path(u, new_node, share)
+        prop, trans = topo.path_delay_per_byte(path)
+        # Multi-hop negotiation keys off the path bottleneck: the encoded
+        # stream is forwarded verbatim, so one codec serves the whole path.
+        codecs[u] = wire_codec.negotiate(
+            codec, wire_codec.link_bandwidth_mbps(
+                max(topo.link(a, b).trans_delay_per_byte
+                    for a, b in zip(path, path[1:]))))
+        eff = wire_codec.effective_trans_s_per_byte(codecs[u], trans)
+        sources[u] = share
+        routes[u] = path
+        worst_path = max(worst_path, prop + share * eff + (sync or {}).get(u, 0.0))
+        wire_share = wire_codec.wire_bytes(codecs[u], share)
+        for a, b in zip(path, path[1:]):
+            key = (min(a, b), max(a, b))
+            link_load[key] = link_load.get(key, 0.0) + wire_share
+    # Multi-hop routes serialize on shared links (Fig 1c): the completion time
+    # is bounded below by the most-loaded link's drain time (in wire bytes).
+    bottleneck = max(
+        (load * topo.link(a, b).trans_delay_per_byte
+         for (a, b), load in link_load.items()),
+        default=0.0,
+    )
+    cds, wire = _wire_fields(sources, codecs, 0)
+    return ReplicationPlan("multi-source", sources, routes,
+                           max(worst_path, bottleneck),
+                           codecs=cds, wire_sources=wire)
+
+
+STRATEGY_BUILDERS = {
+    "chaos": chaos_plan,
+    "chaos-even": chaos_even_plan,
+    "single-source": single_source_plan,
+    "multi-source": multi_source_plan,
+}
+
+
+def build_plan(
+    strategy: str, topo: Topology, new_node: int, state_bytes: int,
+    tensor_sizes: Sequence[int], sync: Optional[Dict[int, float]] = None,
+    codec: str = wire_codec.CODEC_NONE,
+) -> ReplicationPlan:
+    """Strategy-dispatched plan construction — the single entry point used by
+    the scheduler, the churn engine, and the benchmarks. ``codec`` is the
+    scheduler policy (``none``/``int8``/``int8+topk``/``auto``); negotiation
+    resolves it per source link."""
+    if strategy in ("chaos",):
+        return chaos_plan(topo, new_node, state_bytes, tensor_sizes, sync,
+                          codec=codec)
+    if strategy == "chaos-even":
+        return chaos_even_plan(topo, new_node, state_bytes, tensor_sizes, sync,
+                               codec=codec)
+    if strategy == "single-source":
+        return single_source_plan(topo, new_node, state_bytes, sync,
+                                  codec=codec)
+    if strategy == "multi-source":
+        return multi_source_plan(topo, new_node, state_bytes, sync,
+                                 codec=codec)
+    raise ValueError(f"unknown strategy {strategy!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +581,7 @@ class ReshardPlan:
 
 
 def reshard_plan(old_plan: Optional[ParallelismPlan],
-                 new_plan: ParallelismPlan, topo, state_bytes: int,
+                 new_plan: ParallelismPlan, topo: Topology, state_bytes: int,
                  *, codec: str = wire_codec.CODEC_NONE) -> ReshardPlan:
     """Compute the codec-aware movement schedule from ``old_plan`` to
     ``new_plan``. Missing intervals split at old-layout shard boundaries;

@@ -1,20 +1,28 @@
 """Shard-assignment algorithms for multi-neighbor state replication
-(paper §III — problems P1/P2/P3, Algorithms 1 and 2), copied from
-``repro/core/sharding_alg.py``.
+(paper §III — problems P1/P2/P3, Algorithms 1 and 2, and the ablation
+baselines of §VI-F).
 
 Objective (P1, Eq. 4):  min over (s, x)  of  max_u  t_u + τ_u^sync,
   t_u = t_u^prop + s · t_u^trans · |K_u|.
 
-* ``greedy_shard_assignment``      — Algorithm 2 (least-estimated-load greedy).
-  Heap reference.
+* ``greedy_shard_assignment``      — Algorithm 2 (least-estimated-load greedy
+  == LPT for P∥C_max; Graham bound (4/3 − 1/(3|U|))·OPT). Heap reference.
 * ``greedy_shard_assignment_vec``  — the same algorithm solved in closed form
-  with NumPy; exact heap equivalence.
+  with NumPy (threshold search over completion times); exact heap equivalence,
+  sub-millisecond at hundreds of neighbors.
 * ``binary_search_assignment``     — Algorithm 1 (binary search over shard
-  size s, calling Algorithm 2 per candidate).
+  size s, calling Algorithm 2 per candidate; quasi-monotone objective).
+* ``even_assignment``              — equal split (the paper's upper-bound baseline).
+* ``brute_force_assignment``       — exact optimum by exhaustive search (the
+  paper's lower-bound baseline; small K·|U| only).
 
-The plans must be identical to the JAX package's, so the arithmetic is kept
-operation for operation. The ablation baselines and the ``Topology``-based
-helpers come with the simulator's port.
+Whole-plan construction (``ReplicationPlan``, ``chaos_plan``,
+``single_source_plan``, ``multi_source_plan``, …) lives in
+``repro_torch.core.plans``; the names are importable from here too (lazy
+re-export below), as in the JAX package.
+
+Copied from ``repro/core/sharding_alg.py``: the plans must be identical to
+the JAX package's, so the arithmetic is kept operation for operation.
 """
 from __future__ import annotations
 
@@ -270,3 +278,150 @@ def binary_search_assignment(
         else:
             lo = s + 1  # worse → try larger shards (less overhead)
     return best
+
+
+# ---------------------------------------------------------------------------
+# Baselines (paper §VI-F ablations).
+# ---------------------------------------------------------------------------
+
+
+def even_assignment(
+    n_shards: int, s: int, neighbors: Dict[int, NeighborLink]
+) -> Assignment:
+    """Equal split across neighbors — the paper's upper-bound baseline."""
+    us = sorted(neighbors)
+    shards = {u: [] for u in us}
+    for k in range(n_shards):
+        shards[us[k % len(us)]].append(k)
+    counts = {u: len(v) for u, v in shards.items()}
+    worst, per = completion_time(counts, s, neighbors)
+    return Assignment(s, shards, worst, per)
+
+
+def brute_force_assignment(
+    n_shards: int, s: int, neighbors: Dict[int, NeighborLink]
+) -> Assignment:
+    """Exact optimum of P3 by exhaustive enumeration (lower bound).
+
+    Because shards are interchangeable (equal size s), only the per-neighbor
+    *counts* matter: enumerate compositions of K over |U| — exponentially
+    cheaper than raw x_uj enumeration while provably equivalent.
+    """
+    us = sorted(neighbors)
+    best_counts, best_val = None, float("inf")
+    for counts in _compositions(n_shards, len(us)):
+        cmap = dict(zip(us, counts))
+        val, _ = completion_time(cmap, s, neighbors)
+        if val < best_val:
+            best_val, best_counts = val, cmap
+    shards = {u: [] for u in us}
+    nxt = 0
+    for u in us:
+        for _ in range(best_counts[u]):
+            shards[u].append(nxt)
+            nxt += 1
+    worst, per = completion_time(best_counts, s, neighbors)
+    return Assignment(s, shards, worst, per)
+
+
+def _compositions(total: int, parts: int):
+    if parts == 1:
+        yield (total,)
+        return
+    for first in range(total + 1):
+        for rest in _compositions(total - first, parts - 1):
+            yield (first,) + rest
+
+
+# ---------------------------------------------------------------------------
+# Whole-plan construction lives in repro_torch.core.plans (the shared plans
+# path). Lazy re-export avoids a circular import (plans imports the solvers
+# from this module).
+# ---------------------------------------------------------------------------
+
+_PLAN_EXPORTS = (
+    "ReplicationPlan",
+    "measured_neighbors",
+    "chaos_plan",
+    "chaos_even_plan",
+    "single_source_plan",
+    "multi_source_plan",
+    "build_plan",
+    "plan_assignment",
+)
+
+
+def __getattr__(name):  # PEP 562
+    if name in _PLAN_EXPORTS:
+        from repro_torch.core import plans
+        return getattr(plans, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# Ragged-shard variants — Algorithm 1 splits *tensors*, so real shard lists
+# contain remainder shards smaller than s (this raggedness is what opens the
+# LPT optimality gap the paper measures in Fig 16).
+# ---------------------------------------------------------------------------
+
+
+def ragged_shards(tensor_sizes: Sequence[int], s: int) -> List[int]:
+    """Split each tensor into s-byte shards + its remainder shard."""
+    out = []
+    for t in tensor_sizes:
+        t = int(t)
+        while t >= s:
+            out.append(s)
+            t -= s
+        if t > 0:
+            out.append(t)
+    return out
+
+
+def greedy_ragged_assignment(
+    shard_sizes: Sequence[int], neighbors: Dict[int, NeighborLink],
+    sort_desc: bool = True,
+) -> Tuple[Dict[int, List[int]], float]:
+    """LPT over heterogeneous shard sizes; returns (assignment, makespan)."""
+    order = sorted(range(len(shard_sizes)), key=lambda i: -shard_sizes[i]) \
+        if sort_desc else list(range(len(shard_sizes)))
+    loads = {u: l.prop_s + l.sync_s for u, l in neighbors.items()}
+    assign: Dict[int, List[int]] = {u: [] for u in neighbors}
+    for idx in order:
+        sz = shard_sizes[idx]
+        u = min(neighbors, key=lambda u: loads[u] + sz * neighbors[u].trans_s_per_byte)
+        loads[u] += sz * neighbors[u].trans_s_per_byte
+        assign[u].append(idx)
+    return assign, max(loads.values())
+
+
+def brute_force_ragged(
+    shard_sizes: Sequence[int], neighbors: Dict[int, NeighborLink],
+) -> float:
+    """Exact optimal makespan by branch-and-bound (small instances only)."""
+    us = sorted(neighbors)
+    base = {u: neighbors[u].prop_s + neighbors[u].sync_s for u in us}
+    inc = {u: neighbors[u].trans_s_per_byte for u in us}
+    order = sorted(range(len(shard_sizes)), key=lambda i: -shard_sizes[i])
+    best = [float("inf")]
+
+    def rec(i, loads):
+        cur = max(loads.values())
+        if cur >= best[0]:
+            return
+        if i == len(order):
+            best[0] = cur
+            return
+        sz = shard_sizes[order[i]]
+        tried = set()
+        for u in us:
+            key = (round(loads[u], 12))
+            if key in tried:
+                continue
+            tried.add(key)
+            loads2 = dict(loads)
+            loads2[u] = loads[u] + sz * inc[u]
+            rec(i + 1, loads2)
+
+    rec(0, dict(base))
+    return best[0]

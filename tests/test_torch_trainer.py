@@ -183,7 +183,9 @@ def test_port_imports_neither_jax_nor_repro():
             "core/plans.py", "scenarios/trace.py", "checkpoint/__init__.py",
             "checkpoint/_msgpack.py", "checkpoint/async_ckpt.py",
             "checkpoint/memory_ckpt.py", "core/goodput.py", "core/telemetry.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "core/graph.py", "core/topology.py",
+            "core/simulator.py", "core/monitor.py", "core/negotiation.py",
+            "core/baselines.py"} <= names
     for path in files:
         for name, guarded in _imports(path):
             top = name.split(".")[0]
