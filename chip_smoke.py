@@ -93,6 +93,21 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    largest delay, each under 1 ms), all in the simulator's virtual
    seconds; a join of GPT-2's fp32 state under int8 beside the codec's
    modelled charge and the codec kernels' device time from phase 5.
+7. the churn backend (``repro_torch.core``: the control plane,
+   ``SimBackend``, the checkpoint tier, the simulator collectors and
+   ``repro_torch.scenarios``' generators), host Python that launches no
+   kernel, with networkx, JAX and the JAX package absent: ``churn_sweep``
+   replays the omniscient poisson trace held to the pinned
+   ``PRE_RESHARD_DIGEST``, every generator family under the fixed and the
+   adaptive recovery policy on the GPT-2 profile (checkpoint tier,
+   reshard and int8 runs among them) and ``benchmarks/goodput.py``'s
+   churn-rate sweep, omniscient and silent; the canonical JSON of every
+   replay's trace, ledger, decision and span digests, ``validate``,
+   GoodPut report and metrics exposition is held to the pinned
+   ``CHURN_DIGEST``; it prints GoodPut and its BadPut components per
+   family and policy and per churn rate, detection latency, time to
+   recover and the largest handling of scale-in and link events (asserted
+   under 20 ms), all in the simulator's virtual seconds.
 
     python3 chip_smoke.py --baseline DIR
 
@@ -103,7 +118,7 @@ commit, unpacked), on the same inputs, in turns with this checkout's
 
 It prints one JSON line per kernel, per path, for the self-healing phase,
 for the launcher and per serving run, the ``simulator`` line, the
-``kernels`` line (launches summed
+``churn`` line, the ``kernels`` line (launches summed
 over the paths, the self-healing replay, the launcher's in-process runs and
 the serving runs), the card's
 name and power limit from ``nvidia-smi``, and last the line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -2563,6 +2578,324 @@ def simulator_phase(ops, gpt2_leaf_bytes, codec_times):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the simulator's churn backend (host Python; no kernel).
+# ---------------------------------------------------------------------------
+
+#: ``ledger.digest()`` of the seeded omniscient poisson replay
+#: (``tests/test_resharding.py:PRE_RESHARD_DIGEST``), copied here so the GPU
+#: machine holds the port's replay to the reference without JAX.
+PRE_RESHARD_DIGEST = (
+    "42f38e8cb5bb947daed699b7ee21d07c4aba991dbfb783a8978debd726bab42b")
+#: (b): every generator family on the GPT-2 profile on one overlay.
+CHURN_NODES = 12
+CHURN_SEED = 3
+CHURN_POLICIES = ("fixed", "adaptive")
+#: Each family's arguments past ``seed``, from the JAX test that generates
+#: it, and whether it takes the topology or its sorted active nodes.
+CHURN_FAMILY_ARGS = {
+    # tests/test_scenarios.py:28-37
+    "poisson-churn": ("nodes", {"horizon_s": 600.0}),
+    "diurnal-waves": ("nodes", {"horizon_s": 600.0, "period_s": 120.0}),
+    "regional-partition": ("topo", {"t_cut": 10.0, "heal_after_s": 30.0}),
+    "flash-crowd": ("nodes", {"t_start": 3.0, "n_joins": 12}),
+    "link-flaps": ("topo", {"horizon_s": 600.0, "n_flaps": 9}),
+    "adversarial-churn": ("nodes", {"horizon_s": 600.0, "n_joins": 6}),
+    "bandwidth-degradation": ("nodes", {"horizon_s": 600.0, "n_joins": 5,
+                                        "restore_after_s": 10.0}),
+    "checkpointed-training": ("nodes", {"horizon_s": 600.0}),
+    # tests/test_detection.py:471 (_silent_trace)
+    "silent-failures": ("topo", {"horizon_s": 30.0, "n_node_faults": 2,
+                                 "n_link_faults": 2, "n_lossy_links": 1,
+                                 "loss_rate": 0.6, "n_joins": 1}),
+    # tests/test_goodput.py:55
+    "detector-stress": ("topo", {"horizon_s": 60.0}),
+    # tests/test_failover.py:126 (_failover_trace)
+    "scheduler-churn": ("topo", {"horizon_s": 40.0, "t_fault": 12.0,
+                                 "n_joins_before": 2, "n_joins_after": 1}),
+    # tests/test_resharding.py:394
+    "reshard-churn": ("nodes", {"n_failures": 4, "n_joins": 0}),
+    # tests/test_recovery_policy.py:195
+    "mixed-faults": ("topo", {"horizon_s": 200.0}),
+}
+#: reshard-churn's state: its test's own (tests/test_resharding.py:390),
+#: 64 MiB in 2 MiB tensors. On the GPT-2 profile the reference's
+#: ``plans.reshard_plan`` cuts the state at boundaries whose gcd is 1 byte,
+#: so one fetch becomes a list of about 2e8 one-byte shards: a replay then
+#: takes about 20 s and 15 GB of host memory in either package.
+RESHARD_STATE = (64 * MiB, 2 * MiB)
+#: Engine settings past the policy for the families that need them.
+CHURN_FAMILY_KW = {"checkpointed-training": {"checkpoint": "adaptive"},
+                   "mixed-faults": {"checkpoint": "adaptive"},
+                   "reshard-churn": {"reshard": "auto"}}
+#: (c): ``benchmarks/goodput.py``'s churn sweep at its own sizes.
+GOODPUT_NODES = 12
+GOODPUT_STATE = 16 * MiB
+GOODPUT_TENSOR = 1 * MiB
+GOODPUT_HORIZON_S = 600.0
+GOODPUT_RATES = (0.005, 0.01, 0.02, 0.04, 0.08)
+GOODPUT_SEEDS = (3, 7, 11)
+#: The paper's bound on scale-in, connect-link and disconnect-link handling.
+HANDLING_BOUND_S = 0.020
+
+#: sha256 of ``churn_sweep``'s canonical JSON; tests/test_torch_churn_sim.py
+#: runs the sweep through the JAX package and holds it to this value.
+CHURN_DIGEST = (
+    "c2d24843df26195ed2b48cd41ec2f7b665ccf81a0c34256bcec7d1fbe454e858")
+
+
+def churn_modules(package):
+    """The namespace ``churn_sweep`` reads: ``engine``, ``topology``,
+    ``baselines``, ``scenarios``, ``goodput``, ``telemetry`` and
+    ``recovery`` of ``package`` (``"repro_torch"``, or the reference's
+    name in the CPU tests)."""
+    import importlib
+    import types
+
+    mods = {name: importlib.import_module(f"{package}.core.{name}")
+            for name in ("engine", "topology", "baselines", "goodput",
+                         "telemetry", "recovery")}
+    mods["scenarios"] = importlib.import_module(f"{package}.scenarios")
+    return types.SimpleNamespace(**mods)
+
+
+def family_trace(sim, family, topo, seed):
+    """``family``'s trace on ``topo`` at ``seed``, with the arguments of
+    ``CHURN_FAMILY_ARGS``."""
+    takes, kw = CHURN_FAMILY_ARGS[family]
+    base = topo if takes == "topo" else sorted(topo.active_nodes())
+    return sim.scenarios.GENERATORS[family](base, seed=seed, **kw)
+
+
+def trace_jsonl(trace, events=None):
+    """The text ``ScenarioTrace.save`` writes, for ``events`` (the trace's
+    own by default)."""
+    lines = [json.dumps({"scenario": trace.name, "seed": trace.seed,
+                         "meta": trace.meta}, sort_keys=True)]
+    lines += [json.dumps(e.to_json(), sort_keys=True)
+              for e in (trace.events if events is None else events)]
+    return "\n".join(lines) + "\n"
+
+
+def _sha(text):
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def churn_replay(sim, cluster, events, **kw):
+    """``engine.run_trace_goodput``'s replay, keeping the backend for the
+    metrics scrape: returns (ledger, backend)."""
+    backend = sim.engine.SimBackend(cluster, accounting=True, **kw)
+    ledger = sim.engine.ChurnEngine(backend).run(events)
+    return ledger, backend
+
+
+def churn_record(sim, text, ledger, backend):
+    """What ``churn_sweep`` keeps of one replay."""
+    T = sim.telemetry
+    reg = T.MetricsRegistry()
+    T.collect_backend(reg, backend, ledger, report=backend.goodput)
+    return {"trace_sha256": _sha(text), "ledger": ledger.digest(),
+            "decisions": sim.recovery.decision_digest(ledger),
+            "spans": T.span_digest(ledger), "valid": T.validate(ledger) == [],
+            "goodput": backend.goodput.to_json(),
+            "metrics_sha256": _sha(reg.exposition())}
+
+
+def churn_runs(sim):
+    """Every replay of the sweep, as (key, trace text, cluster, events,
+    engine settings), clusters built after ``train(1)``:
+
+    (a) the omniscient poisson replay of ``tests/test_resharding.py:40-48``
+        (16 nodes, 32 MiB in 1 MiB tensors, ``reshard="never"``);
+    (b) every family of ``scenarios.GENERATORS`` at ``CHURN_SEED`` with the
+        arguments of ``CHURN_FAMILY_ARGS`` (their tests are named there), on
+        the GPT-2 profile (reshard-churn on ``RESHARD_STATE``) over
+        ``random_edge_topology(12, seed=0)``, under each of
+        ``CHURN_POLICIES`` with ``CHURN_FAMILY_KW``, and one poisson run
+        under int8;
+    (c) ``benchmarks/goodput.py``'s churn sweep as ``measure_goodput``
+        builds it: every rate of ``GOODPUT_RATES`` and seed of
+        ``GOODPUT_SEEDS``, omniscient and with the crashes silent."""
+    import dataclasses
+
+    topo_mod, S = sim.topology, sim.scenarios
+    topo = topo_mod.random_edge_topology(16, seed=0)
+    cl = sim.baselines.SimCluster(topo, state_bytes=32 * MiB,
+                                  tensor_sizes=[MiB] * 32)
+    cl.train(1)
+    trace = S.poisson_churn(sorted(topo.active_nodes()), seed=3,
+                            horizon_s=600.0, rate_join=0.05, rate_leave=0.04)
+    yield "omniscient-poisson", trace_jsonl(trace), cl, list(trace), \
+        {"reshard": "never"}
+
+    name, state, typ = SIM_PROFILES[0]
+    profiles = {"gpt2": (state, sim_tensor_sizes(state, typ)),
+                "reshard": (RESHARD_STATE[0], sim_tensor_sizes(*RESHARD_STATE))}
+
+    def cluster(family):
+        state_bytes, sizes = profiles["reshard" if family == "reshard-churn"
+                                      else "gpt2"]
+        c = sim.baselines.make_cluster(
+            topo_mod.random_edge_topology(CHURN_NODES, seed=0),
+            state_bytes=state_bytes, tensor_sizes=sizes, strategy="chaos")
+        c.train(1)
+        return c
+
+    for family in S.GENERATORS:
+        trace = family_trace(sim, family,
+                             topo_mod.random_edge_topology(CHURN_NODES, seed=0),
+                             CHURN_SEED)
+        runs = [(f"{family}|{policy}",
+                 {"policy": policy, "detector": "phi",
+                  **CHURN_FAMILY_KW.get(family, {})})
+                for policy in CHURN_POLICIES]
+        if family == "poisson-churn":
+            runs.append((f"{family}|fixed|int8",
+                         {"policy": "fixed", "detector": "phi", "codec": "int8"}))
+        for key, kw in runs:
+            yield key, trace_jsonl(trace), cluster(family), list(trace), kw
+
+    for rate in GOODPUT_RATES:
+        for seed in GOODPUT_SEEDS:
+            for silent in (False, True):
+                topo = topo_mod.random_edge_topology(GOODPUT_NODES, seed=seed)
+                trace = S.poisson_churn(topo.active_nodes(), seed=seed + 3,
+                                        horizon_s=GOODPUT_HORIZON_S,
+                                        rate_join=0.02, rate_leave=rate,
+                                        failure_fraction=1.0)
+                events = list(trace)
+                if silent:
+                    events = [dataclasses.replace(e, kind="node-fault")
+                              if e.kind == "node-failure" else e
+                              for e in events]
+                c = sim.baselines.make_cluster(
+                    topo, state_bytes=GOODPUT_STATE,
+                    tensor_sizes=[GOODPUT_TENSOR] * (GOODPUT_STATE // GOODPUT_TENSOR),
+                    strategy="chaos")
+                c.train(1)
+                yield (f"goodput|{rate}|{seed}|{'silent' if silent else 'omniscient'}",
+                       trace_jsonl(trace, events), c, events, {})
+
+
+def churn_sweep(sim, keep=None):
+    """The churn backend's deterministic outputs through ``sim`` (see
+    ``churn_modules``), one record per run of ``churn_runs``: the trace's
+    JSONL sha256, ``ledger.digest()``, ``decision_digest``,
+    ``span_digest``, ``validate(ledger) == []``, the GoodPut report and the
+    sha256 of the ``collect_backend`` exposition. ``keep``, a dict, also
+    receives each run's (ledger, backend)."""
+    out = {}
+    for key, text, cluster, events, kw in churn_runs(sim):
+        ledger, backend = churn_replay(sim, cluster, events, **kw)
+        out[key] = churn_record(sim, text, ledger, backend)
+        if keep is not None:
+            keep[key] = (ledger, backend)
+    return out
+
+
+def _median_max(xs):
+    import statistics
+
+    return ({"median": statistics.median(xs), "max": max(xs), "n": len(xs)}
+            if xs else {"median": None, "max": None, "n": 0})
+
+
+def churn_phase(ops):
+    """Phase 7: the port's churn backend on this host. The pinned
+    omniscient-poisson digest and ``CHURN_DIGEST``; GoodPut and its BadPut
+    components per family and policy and along the churn-rate sweep;
+    detection latency, time to recover and the largest handling
+    (``blocking_s``) of scale-in and link events, all in the simulator's
+    virtual seconds, not card time. Launches no kernel."""
+    import statistics
+
+    blocked = ("networkx", "jax", "repro")
+    for name in blocked:
+        if sys.modules.get(name) is not None:  # None: blocked, not imported
+            raise AssertionError(f"the churn phase imported {name}")
+    before = dict(ops.launches)
+    t0 = time.perf_counter()
+    # The sweep runs with the three unimportable: an import of any raises.
+    absent = [name for name in blocked if name not in sys.modules]
+    sys.modules.update(dict.fromkeys(blocked))
+    try:
+        sim = churn_modules("repro_torch")
+        keep = {}
+        sweep = churn_sweep(sim, keep)
+    finally:
+        for name in absent:
+            del sys.modules[name]
+    digest = sweep_digest(sweep)
+    t_digest = time.perf_counter() - t0
+    if sweep["omniscient-poisson"]["ledger"] != PRE_RESHARD_DIGEST:
+        raise AssertionError(
+            f"omniscient poisson ledger {sweep['omniscient-poisson']['ledger']}"
+            f" != PRE_RESHARD_DIGEST {PRE_RESHARD_DIGEST}")
+    if digest != CHURN_DIGEST:
+        raise AssertionError(f"churn sweep digest {digest} != CHURN_DIGEST "
+                             f"{CHURN_DIGEST}")
+    invalid = [key for key, rec in sweep.items() if not rec["valid"]]
+    if invalid:
+        raise AssertionError(f"span forests fail validate(): {invalid}")
+
+    T = sim.telemetry
+    families = {}
+    for key, rec in sweep.items():
+        if key.startswith("goodput|") or key == "omniscient-poisson":
+            continue
+        g = rec["goodput"]
+        families[key] = {"goodput_fraction": g["goodput_fraction"],
+                         "virtual_badput_s": {c: v for c, v in
+                                              g["components"].items()
+                                              if c != "productive"}}
+    rates = {}
+    for rate in GOODPUT_RATES:
+        for mode in ("omniscient", "silent"):
+            fr = [sweep[f"goodput|{rate}|{seed}|{mode}"]["goodput"]
+                  ["goodput_fraction"] for seed in GOODPUT_SEEDS]
+            rates.setdefault(str(rate), {})[mode] = statistics.fmean(fr)
+    detection, ttr, blocking = [], [], {}
+    for ledger, _ in keep.values():
+        detection += [r["detection_s"] for r in T.detection_rows(ledger)
+                      if r["detected_t"] is not None]
+        ttr += [r["ttr_s"] for r in T.ttr_rows(ledger)]
+        for r in ledger:
+            group = "leave" if r.kind == "leave" else r.action
+            if group in ("leave", "link-connected", "link-disconnected",
+                         "link-failed", "node-failed"):
+                b = r.detail.get("blocking_s")
+                if b is not None:
+                    blocking[group] = max(blocking.get(group, 0.0), b)
+    for group in ("leave", "link-connected", "link-failed", "node-failed"):
+        if group not in blocking:
+            raise AssertionError(f"the churn sweep handled no {group} record")
+    # No generator emits link-leave, so link-disconnected has no record;
+    # link-failed is the same handler's failure twin.
+    blocking.setdefault("link-disconnected", None)
+    over = {g: b for g, b in blocking.items()
+            if b is not None and not b < HANDLING_BOUND_S}
+    if over:
+        raise AssertionError(f"handling over {HANDLING_BOUND_S} virtual s: "
+                             f"{over}")
+    if dict(ops.launches) != before:
+        raise AssertionError(f"the churn phase launched kernels: "
+                             f"{before} -> {dict(ops.launches)}")
+    summary = {
+        "digest": digest, "pre_reshard_digest": PRE_RESHARD_DIGEST,
+        "replays": len(sweep), "digest_s": t_digest,
+        "host_s": time.perf_counter() - t0,
+        "families": families, "goodput_by_rate_seed_mean": rates,
+        "virtual_detection_s": _median_max(detection),
+        "virtual_ttr_s": _median_max(ttr),
+        "virtual_max_blocking_s": blocking,
+    }
+    log(f"churn backend: {len(sweep)} replays, digest {digest} and "
+        f"{PRE_RESHARD_DIGEST[:8]}... held; largest handling (virtual s) "
+        f"{json.dumps(blocking)}; detection {json.dumps(summary['virtual_detection_s'])}"
+        f"; host {summary['host_s']:.2f} s")
+    return summary
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -2692,6 +3025,8 @@ def main():
     # Phase 6: the simulator substrate, beside the codec's device times.
     simulator = simulator_phase(ops, gpt2_leaf_bytes,
                                 (times["shard_encode"], times["shard_decode"]))
+    # Phase 7: the churn backend replays traces on the simulator.
+    churn = churn_phase(ops)
     rows = [
         ("shard_encode", "src/repro_torch/csrc/shard_codec.cu",
          "src/repro/kernels/shard_codec.py:46"),
@@ -2722,6 +3057,7 @@ def main():
                             "device_ms", "baseline_device_ms") if key in t},
                         "launches": launches[name]}))
     print(json.dumps({"simulator": simulator}))
+    print(json.dumps({"churn": churn}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -24,15 +24,18 @@ module uses it, the same rounding in :meth:`GoodputReport.to_json`) is the
 JAX module's, so the same ledger gives byte-identical reports in both
 packages.
 
-Not ported here: ``SimCheckpointTier``, the simulator's checkpoint tier.
-It drives pushes as contending transfers on the simulated network
-(``simulator.TransferHandle``) and comes with the simulator substrate.
+:class:`SimCheckpointTier` is the simulator's checkpoint tier: periodic
+pushes that ride the simulated network as contending transfers
+(``simulator.TransferHandle``), a fixed or churn-adaptive cadence, and the
+ledgered restore paths ``SimBackend`` runs on a node failure.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
+
+from repro_torch.core.simulator import TransferHandle
 
 # -- interval taxonomy -------------------------------------------------------
 
@@ -237,3 +240,346 @@ def optimal_interval(ckpt_cost_s: float, fault_rate_hz: float, *,
     if ckpt_cost_s <= 0.0 or fault_rate_hz <= 0.0:
         return hi
     return min(max(math.sqrt(2.0 * ckpt_cost_s / fault_rate_hz), lo), hi)
+
+
+class SimCheckpointTier:
+    """Periodic checkpoint pushes riding the simulated network, wired into
+    ``SimBackend`` (``checkpoint="fixed"|"adaptive"``).
+
+    Each push charges a synchronous snapshot stall, then streams the state
+    bytes from the scheduler home to a deterministically chosen holder as a
+    *contending* data transfer. Churn touching the push's route (or either
+    endpoint) cancels it with the same shard-aligned credit replication
+    streams get — the credited prefix survives on the holder and the resumed
+    push moves only the missing bytes. On a node failure the tier executes
+    whichever restore action the backend's recovery policy chose
+    (:meth:`restore`): ``restore-replica`` re-seeds from neighbor replicas
+    for free (synchronous-DP state survives — the paper's §III premise),
+    ``restore-checkpoint`` pays a restore read from the holder plus all work
+    since the last completed checkpoint (``lost`` BadPut). The tier decides
+    nothing — selection lives in ``repro_torch.core.recovery``.
+
+    Every started push reaches exactly one terminal record
+    (``ckpt-complete`` / ``ckpt-cancelled``); all records use the
+    ``"checkpoint"`` ledger kind.
+    """
+
+    def __init__(self, backend, *, cadence: str = "adaptive",
+                 interval_s: Optional[float] = None,
+                 snapshot_s: float = CKPT_SNAPSHOT_S):
+        if cadence not in ("fixed", "adaptive"):
+            raise ValueError(f"unknown checkpoint cadence {cadence!r}")
+        self.backend = backend
+        self.cluster = backend.cluster
+        self.cadence = cadence
+        self.snapshot_s = float(snapshot_s)
+        self.base_interval_s = float(CKPT_BASE_INTERVAL_S
+                                     if interval_s is None else interval_s)
+        self.interval_s = self.base_interval_s
+        self.t0 = self.sim.now
+        #: observed node-failure arrivals (the events a restore must cover).
+        self.faults = 0
+        self.completed = 0
+        self.cancelled = 0
+        self._costs: List[float] = []  # measured per-push stall charges
+        self._push: Optional[dict] = None
+        self._epoch = 0
+        self._carry = 0  # credited bytes surviving a cancelled push
+        self.last_ckpt: Optional[dict] = None  # {"t", "holder"}
+        self._cold_base = self.sim.now  # lost-work floor before any ckpt
+        self._gen = 0
+        self._closed = False
+        self._schedule_fire(self.interval_s)
+
+    # -- plumbing ------------------------------------------------------------
+
+    @property
+    def sim(self):
+        return self.cluster.sim
+
+    @property
+    def net(self):
+        return self.cluster.net
+
+    @property
+    def topo(self):
+        return self.cluster.topo
+
+    @property
+    def sched(self):
+        return self.cluster.scheduler
+
+    @property
+    def _ledger(self):
+        return self.backend._ledger
+
+    def fault_rate_hz(self) -> float:
+        elapsed = self.sim.now - self.t0
+        return self.faults / elapsed if elapsed > 0 else 0.0
+
+    def measured_cost_s(self) -> float:
+        return (math.fsum(self._costs) / len(self._costs)
+                if self._costs else self.snapshot_s)
+
+    def current_interval(self) -> float:
+        if self.cadence == "fixed":
+            return self.base_interval_s
+        if self.faults == 0:
+            # No evidence yet: the adaptive prior is the fixed baseline
+            # (never worse than it before the first measured fault).
+            return self.base_interval_s
+        return optimal_interval(self.measured_cost_s(), self.fault_rate_hz(),
+                                hi=max(CKPT_MAX_INTERVAL_S,
+                                       self.base_interval_s))
+
+    def note_fault(self):
+        """A node failure arrived (silent injection or omniscient handling):
+        the arrival-rate input to the adaptive cadence."""
+        self.faults += 1
+
+    # -- the push cycle ------------------------------------------------------
+
+    def _schedule_fire(self, dt: float):
+        if self._closed:
+            return
+        self._gen += 1
+        gen = self._gen
+        self.sim.at(self.sim.now + max(float(dt), 1e-6),
+                    lambda: self._scheduled_fire(gen), daemon=True)
+
+    def _scheduled_fire(self, gen: int):
+        if gen != self._gen or self._closed or self._ledger is None:
+            return
+        if self._push is not None or self.backend.control.leaderless \
+                or self.backend.control.frozen:
+            # A push still in flight (interval shorter than the wire time)
+            # or no leader to coordinate one: try again shortly.
+            self._schedule_fire(CKPT_RETRY_S)
+            return
+        self._fire(-1)
+
+    def force_push(self, seq: int, ledger) -> None:
+        """A trace-borne ``checkpoint`` event: push now, under the event's
+        seq, so recorded cadences replay verbatim."""
+        if self._push is not None:
+            ledger.append(seq, self.sim.now, "checkpoint", self.sched.node,
+                          "ckpt-skipped-inflight", {"epoch": self._epoch})
+            return
+        self._fire(seq)
+
+    def _pick_holder(self, home: int) -> Optional[int]:
+        """Deterministic holder: the directly linked active node with the
+        fastest link to home (ties to the lowest id), else the lowest-id
+        reachable node."""
+        others = [n for n in self.topo.active_nodes() if n != home]
+        linked = [n for n in others if self.topo.has_link(home, n)]
+        if linked:
+            return max(linked, key=lambda n: (
+                self.topo.link(home, n).bandwidth_mbps, -n))
+        for n in sorted(others):
+            if self.topo.has_path(home, n):
+                return n
+        return None
+
+    def _fire(self, seq: int):
+        now = self.sim.now
+        home = self.sched.node
+        holder = self._pick_holder(home)
+        if holder is None:
+            if seq >= 0:
+                self._ledger.append(seq, now, "checkpoint", home,
+                                    "ckpt-skipped-no-holder")
+            else:
+                self._schedule_fire(CKPT_RETRY_S)
+            return
+        self.interval_s = self.current_interval()
+        remaining = max(0, int(self.cluster.state_bytes) - self._carry)
+        shard = (int(max(self.cluster.tensor_sizes))
+                 if len(self.cluster.tensor_sizes) else 0)
+        self._epoch += 1
+        handle = TransferHandle()
+        push = {"handle": handle, "home": home, "holder": holder,
+                "route": self.topo.shortest_path(home, holder,
+                                                 max(remaining, 1)),
+                "t0": now, "bytes": remaining, "shard": shard,
+                "epoch": self._epoch, "seq": seq}
+        self._push = push
+        self._ledger.append(seq, now, "checkpoint", home, "ckpt-started", {
+            "holder": holder, "bytes": remaining,
+            "credited_bytes": int(self._carry),
+            "snapshot_s": self.snapshot_s,
+            "interval_s": round(self.interval_s, 6),
+            "cadence": self.cadence, "epoch": self._epoch,
+        })
+
+        def launch():
+            # Superseded or killed during the snapshot window: the terminal
+            # record comes from the cancellation path, not from here.
+            if push is not self._push or handle.cancelled or handle.stalled:
+                return
+            self.net.transfer(push["route"], max(push["bytes"], 1),
+                              lambda t: self._complete(push, t),
+                              handle=handle)
+
+        # The stall charge delays the first byte; the wire time overlaps
+        # training (the accounting charges only the snapshot window).
+        self.sim.at(now + self.snapshot_s, launch)
+
+    def _complete(self, push: dict, t: float):
+        if push is not self._push:
+            return
+        self._push = None
+        self.completed += 1
+        self._costs.append(self.snapshot_s)
+        self.backend.policy.observe("snapshot", self.snapshot_s)
+        self._carry = 0
+        self.last_ckpt = {"t": t, "holder": push["holder"]}
+        if self._ledger is not None:
+            self._ledger.append(push["seq"], t, "checkpoint", push["home"],
+                                "ckpt-complete", {
+                                    "holder": push["holder"],
+                                    "bytes": push["bytes"],
+                                    "push_s": t - push["t0"],
+                                    "epoch": push["epoch"],
+                                })
+        self.interval_s = self.current_interval()
+        self._schedule_fire(self.interval_s)
+
+    def _cancel_push(self, now: float, *, holder_lost: bool, reason: str,
+                     resume: bool = True):
+        push, self._push = self._push, None
+        self.cancelled += 1
+        h = push["handle"]
+        h.cancel(now)
+        delivered = int(h.cancelled_delivered)
+        shard = push["shard"]
+        credited = (delivered // shard) * shard if shard > 0 else delivered
+        if holder_lost:
+            # The holder died with the shards it held: nothing survives.
+            self._carry, credited = 0, 0
+        else:
+            self._carry += credited
+        if self._ledger is not None:
+            self._ledger.append(push["seq"], now, "checkpoint", push["home"],
+                                "ckpt-cancelled", {
+                                    "holder": push["holder"],
+                                    "delivered_bytes": delivered,
+                                    "credited_bytes": credited,
+                                    "epoch": push["epoch"],
+                                    "reason": reason,
+                                })
+        if resume:
+            self._schedule_fire(CKPT_RETRY_S)
+
+    # -- churn hooks (mirroring the replication stream hooks) ----------------
+
+    def _touches(self, push: dict, *, node=None, link=None) -> bool:
+        if node is not None:
+            return (node == push["holder"] or node == push["home"]
+                    or node in push["route"])
+        key = (min(link), max(link))
+        return any((min(a, b), max(a, b)) == key
+                   for a, b in zip(push["route"], push["route"][1:]))
+
+    def stall_if_touched(self, *, node=None, link=None):
+        """A silent fault froze the push stream: bytes stop now, the
+        detection-triggered churn later cancels and credits the prefix."""
+        push = self._push
+        if push is not None and self._touches(push, node=node, link=link):
+            push["handle"].stall(self.sim.now)
+
+    def on_node_event(self, seq: int, node: int, *, failure: bool,
+                      omniscient: bool):
+        """A node left the cluster (graceful or failed, omniscient or
+        detected). Credit any touched push and drop holder state; the
+        engine executes the policy-chosen restore separately
+        (:meth:`restore`)."""
+        now = self.sim.now
+        if failure and omniscient:
+            # Detected failures were counted at fault injection.
+            self.note_fault()
+        if self._push is not None and self._touches(self._push, node=node):
+            self._cancel_push(now, holder_lost=(node == self._push["holder"]),
+                              reason="node-churn")
+        if self.last_ckpt is not None and self.last_ckpt["holder"] == node:
+            # The durable copy died with its holder; the next restore is
+            # cold until a fresh push completes.
+            self.last_ckpt = None
+
+    def on_link_event(self, link: Tuple[int, int]):
+        """A route link died or changed rate mid-push: cancel with credit
+        and resume the missing bytes over the current topology."""
+        if self._push is not None and self._touches(self._push, link=link):
+            self._cancel_push(self.sim.now, holder_lost=False,
+                              reason="link-churn")
+
+    # -- recovery ------------------------------------------------------------
+
+    def restore(self, seq: int, dead_node: int, action: str):
+        """Execute the restore action the recovery policy chose for a node
+        failure (``restore-replica`` / ``restore-checkpoint``). Measured
+        restore and lost-work costs feed straight back into the policy's
+        online cost model — the calibration loop Chameleon prescribes."""
+        if action not in ("restore-replica", "restore-checkpoint"):
+            raise ValueError(f"unknown restore action {action!r}")
+        now = self.sim.now
+        if self._ledger is None:
+            return
+        if action == "restore-replica":
+            # Synchronous-DP state survives on the neighbor replicas
+            # (MemoryReplicaStore tier): nothing is lost, nothing is read
+            # back — the record exists so the A/B against checkpoint
+            # recovery is visible in the same ledger vocabulary.
+            self._ledger.append(seq, now, "checkpoint", dead_node,
+                                "replica-restored",
+                                {"restore_s": 0.0, "lost_s": 0.0})
+            return
+        lk = self.last_ckpt
+        home = self.sched.node
+        if (lk is None or lk["holder"] not in self.topo.nodes
+                or not self.topo.has_path(lk["holder"], home)):
+            # No durable checkpoint reachable: everything since the last
+            # cold base is gone.
+            lost_from = self._cold_base
+            self._ledger.append(seq, now, "checkpoint", dead_node,
+                                "ckpt-restored", {
+                                    "restore_s": 0.0,
+                                    "lost_s": now - lost_from,
+                                    "lost_from": lost_from, "lost_to": now,
+                                    "cold": True,
+                                })
+            self.backend.policy.observe("lost", now - lost_from)
+            self._cold_base = now
+            return
+        nbytes = max(int(self.cluster.state_bytes), 1)
+        route = self.topo.shortest_path(lk["holder"], home, nbytes)
+        lost_from = lk["t"]
+
+        def done(t, seq=seq, dead=dead_node, holder=lk["holder"],
+                 t_req=now, lost_from=lost_from):
+            if self._ledger is not None:
+                self._ledger.append(seq, t, "checkpoint", dead,
+                                    "ckpt-restored", {
+                                        "restore_s": t - t_req,
+                                        "lost_s": t_req - lost_from,
+                                        "lost_from": lost_from,
+                                        "lost_to": t_req,
+                                        "holder": holder,
+                                    })
+            self.backend.policy.observe("restore-checkpoint", t - t_req)
+            self.backend.policy.observe("lost", t_req - lost_from)
+
+        # Contending, non-daemon: the restore read is real recovery work
+        # and must drain before the run ends.
+        self.net.transfer(route, nbytes, done)
+
+    # -- shutdown ------------------------------------------------------------
+
+    def finalize(self, ledger):
+        """End of drain: close any still-open push with a credited terminal
+        record so every ``ckpt-started`` reaches exactly one terminal."""
+        self._closed = True
+        self._gen += 1
+        if self._push is not None:
+            self._cancel_push(self.sim.now, holder_lost=False,
+                              reason="drain", resume=False)

@@ -21,6 +21,14 @@ because the simulator's timelines depend on them:
   the strictly-shorter rule for the meeting node.
 * ``restricted_view`` hides nodes and undirected edges without copying; its
   neighbour order is the base graph's.
+* ``subgraph_view`` keeps the nodes and edges two predicates accept, as
+  ``nx.subgraph_view`` does, in the base graph's neighbour order.
+* ``single_source_dijkstra_path_length`` is networkx 3.6.1's
+  ``_dijkstra_multisource`` from one source. The control plane sums link
+  latencies along its routes into an election's round trip, and float sums
+  taken in another order can differ in the last bit, so the copy keeps the
+  heap of ``(dist, tie counter, node)``, the ``seen`` table and the
+  strictly-shorter rule.
 * ``NoPath`` and ``NodeNotFound`` are raised where networkx raises
   ``NetworkXNoPath`` and ``NodeNotFound``.
 """
@@ -116,21 +124,22 @@ class Graph:
         return iter(self._adj)
 
 
-class _RestrictedView:
-    """``g`` with some nodes and undirected edges hidden; reads through."""
+class _View:
+    """``g`` restricted to the nodes ``node_ok`` accepts and the edges
+    ``edge_ok(u, v)`` accepts, ``u`` the node whose neighbours are read;
+    reads through, in the base graph's order."""
 
-    def __init__(self, g, nodes, edges):
+    def __init__(self, g, node_ok, edge_ok):
         self._base = g
-        self._hidden = set(nodes)
-        self._hidden_edges = set(edges) | {(v, u) for (u, v) in edges}
+        self._node_ok = node_ok
+        self._edge_ok = edge_ok
 
     def _ok(self, u, v):
-        return v not in self._hidden and (u, v) not in self._hidden_edges
+        return self._node_ok(v) and self._edge_ok(u, v)
 
     def _items(self):
         return ((n, [v for v in nbrs if self._ok(n, v)])
-                for n, nbrs in self._base._adj.items()
-                if n not in self._hidden)
+                for n, nbrs in self._base._adj.items() if self._node_ok(n))
 
     def neighbors(self, n):
         if n not in self:
@@ -146,16 +155,26 @@ class _RestrictedView:
         return _EdgeView(self)
 
     def __contains__(self, n):
-        return n in self._base._adj and n not in self._hidden
+        return n in self._base._adj and self._node_ok(n)
 
     def __iter__(self):
-        return (n for n in self._base._adj if n not in self._hidden)
+        return (n for n in self._base._adj if self._node_ok(n))
+
+
+def subgraph_view(g, filter_node=lambda n: True,
+                  filter_edge=lambda u, v: True):
+    """``g`` seen through a node and an edge predicate, as
+    ``nx.subgraph_view``."""
+    return _View(g, filter_node, filter_edge)
 
 
 def restricted_view(g, nodes, edges):
     """``g`` without ``nodes`` and the undirected ``edges`` (either
     orientation), as ``nx.restricted_view``."""
-    return _RestrictedView(g, nodes, edges)
+    hidden = set(nodes)
+    hidden_edges = set(edges) | {(v, u) for (u, v) in edges}
+    return _View(g, lambda n: n not in hidden,
+                 lambda u, v: (u, v) not in hidden_edges)
 
 
 def shortest_path(g, source, target, weight):
@@ -212,6 +231,38 @@ def shortest_path(g, source, target, weight):
                     if finaldist is None or finaldist > finaldist_w:
                         finaldist, meetnode = finaldist_w, w
     raise NoPath(f"No path between {source} and {target}.")
+
+
+def single_source_dijkstra_path_length(g, source, weight):
+    """Least route weight from ``source`` to every node it reaches, as a
+    dict in the order the nodes were settled: networkx 3.6.1's
+    ``_dijkstra_multisource`` from one source, operation for operation (see
+    the module docstring). ``weight(u, v, data)`` gives an edge's cost,
+    ``None`` hides the edge."""
+    if source not in g:
+        raise NodeNotFound(f"Node {source} not found in graph")
+    dist = {}  # settled distances
+    seen = {source: 0}
+    c = count()
+    fringe = [(0, next(c), source)]  # heap of (distance, tie counter, node)
+    while fringe:
+        dist_v, _, v = heappop(fringe)
+        if v in dist:
+            continue
+        dist[v] = dist_v
+        for u, e in g.nbr_items(v):
+            cost = weight(v, u, e)
+            if cost is None:
+                continue
+            vu_dist = dist_v + cost
+            if u in dist:
+                if vu_dist < dist[u]:
+                    raise ValueError("Contradictory paths found:",
+                                     "negative weights?")
+            elif u not in seen or vu_dist < seen[u]:
+                seen[u] = vu_dist
+                heappush(fringe, (vu_dist, next(c), u))
+    return dist
 
 
 def has_path(g, source, target):

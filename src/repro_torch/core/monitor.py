@@ -45,7 +45,7 @@ fresh probe/heartbeat evidence for its links and endpoints — the next
 redundant control datagram is skipped; ``piggyback = False`` restores
 always-probe) and **scheduler silence** (``scheduler_silent``: the home
 node died, so this monitor processes nothing until the decentralized
-control plane (``repro/core/control.py``, not ported yet) elects a
+control plane (``repro_torch.core.control``) elects a
 successor and calls :meth:`rebase_home`).
 """
 from __future__ import annotations
@@ -92,7 +92,7 @@ LOSS_GIVEUP_SWEEPS = 32
 DETECTORS = ("fixed", "phi")
 
 #: heartbeat-ack datagram the scheduler sends back to its deputies — the
-#: signal the decentralized control plane (``repro/core/control.py``) watches to
+#: signal the decentralized control plane (repro_torch.core.control) watches to
 #: detect the scheduler's *own* silence (inverting the one-way heartbeat).
 ACK_BYTES = 128.0
 

@@ -10,8 +10,8 @@
   :class:`CostModel` calibrated online, picks the cheapest, and ledgers
   every choice as a ``recovery-decided`` record.
 
-Decisions are substrate-independent: the JAX simulator's ``SimBackend``
-and the port's ``TrainerBackend`` build the same pure :class:`FaultContext`
+Decisions are substrate-independent: the simulator's ``SimBackend`` and
+the trainer's ``TrainerBackend`` build the same pure :class:`FaultContext`
 fields from a trace, so :func:`decision_digest` is byte-identical across
 them on the same trace.
 """

@@ -27,10 +27,10 @@ Every float expression, summation order, ``_fmt`` and ``json.dumps``
 argument is the JAX module's: the same ledger gives byte-identical
 digests, Chrome traces, markdown and exposition in both packages.
 
-Not ported here: ``collect_network``, ``collect_monitor``,
-``collect_control`` and ``collect_backend``. They read the simulator's
-network, monitor, control plane and ``SimBackend``, and come with the
-simulator substrate.
+``collect_network``, ``collect_monitor``, ``collect_control`` and
+``collect_backend`` scrape the simulator's network, monitor, control plane
+and ``SimBackend``; ``collect_trainer_backend`` is the trainer's
+counterpart.
 """
 from __future__ import annotations
 
@@ -542,8 +542,8 @@ def span_digest(ledger, forest: Optional[SpanForest] = None) -> str:
     Projects every event root (seq >= 0) to ``(seq, kind, subject, fate)``
     — dropping all times and substrate-local outcomes — orders rows by
     ``(seq, kind, subject)``, and hashes the canonical JSON lines. Same
-    trace ⇒ the same digest from the JAX simulator's ``SimBackend`` and
-    :class:`~repro_torch.elastic.trainer.TrainerBackend` replays."""
+    trace ⇒ the same digest from :class:`~repro_torch.core.engine.SimBackend`
+    and :class:`~repro_torch.elastic.trainer.TrainerBackend` replays."""
     if forest is None:
         forest = build_spans(ledger)
     details: Dict[int, Dict[str, Dict]] = {}
@@ -931,6 +931,81 @@ class MetricsRegistry:
 # ---------------------------------------------------------------------------
 
 
+def collect_network(reg: MetricsRegistry, net, *, now=None) -> None:
+    """Wire bytes, control datagrams, queue depth off a ``Network``."""
+    snap = net.metrics_snapshot(now=now)
+    reg.counter("chaos_network_data_wire_bytes_total",
+                "Payload bytes of contending data transfers"
+                ).inc(snap["data_wire_bytes"])
+    reg.counter("chaos_network_control_wire_bytes_total",
+                "Bytes of non-contending control datagrams"
+                ).inc(snap["control_wire_bytes"])
+    reg.counter("chaos_network_control_messages_total",
+                "Control datagrams sent").inc(snap["control_messages"])
+    reg.counter("chaos_network_bytes_total",
+                "All bytes placed on the wire").inc(snap["bytes_on_wire"])
+    reg.gauge("chaos_network_queue_backlog_seconds",
+              "Summed per-link busy time beyond now (queue depth)"
+              ).set(snap["queue_backlog_s"])
+    reg.gauge("chaos_network_queued_links",
+              "Links with a non-empty transmit queue"
+              ).set(snap["queued_links"])
+
+
+def collect_monitor(reg: MetricsRegistry, mon, *, now=None) -> None:
+    """Phi scores, sweep periods, piggyback hits off a ``ClusterMonitor``."""
+    snap = mon.metrics_snapshot(now=now)
+    reg.counter("chaos_monitor_control_datagrams_total",
+                "Heartbeats/probes/acks sent by the monitor"
+                ).inc(snap["control_datagrams"])
+    reg.counter("chaos_monitor_piggybacked_probes_total",
+                "Probes satisfied by bulk-transfer deliveries"
+                ).inc(snap["piggybacked_probes"])
+    reg.counter("chaos_monitor_piggybacked_heartbeats_total",
+                "Heartbeats satisfied by bulk-transfer deliveries"
+                ).inc(snap["piggybacked_heartbeats"])
+    g = reg.gauge("chaos_monitor_sweep_period_seconds",
+                  "Current adaptive sweep period", labels=("sweep",))
+    g.set(snap["heartbeat_period_s"], sweep="heartbeat")
+    g.set(snap["probe_period_s"], sweep="probe")
+    reg.gauge("chaos_monitor_phi_threshold",
+              "Suspicion threshold for declaring a node dead"
+              ).set(snap["phi_threshold"])
+    reg.gauge("chaos_monitor_sweeps_on",
+              "1 while detection sweeps are running").set(
+        1.0 if snap["sweeps_on"] else 0.0)
+    reg.gauge("chaos_monitor_pending_faults",
+              "Injected faults not yet detected or expired",
+              labels=("family",))
+    for fam, n in sorted(snap["pending_faults"].items()):
+        reg.gauge("chaos_monitor_pending_faults",
+                  labels=("family",)).set(n, family=fam)
+    phi = reg.gauge("chaos_monitor_phi_score",
+                    "Current phi suspicion per monitored node",
+                    labels=("node",))
+    for node, score in sorted(snap["suspicion"].items()):
+        phi.set(score, node=node)
+
+
+def collect_control(reg: MetricsRegistry, control) -> None:
+    """Election terms and sync wire bytes off a ``ControlPlane``."""
+    snap = control.metrics_snapshot()
+    reg.counter("chaos_control_terms_total",
+                "Scheduler elections installed").inc(snap["term"])
+    reg.counter("chaos_control_sync_wire_bytes_total",
+                "Bytes of deputy state-sync traffic"
+                ).inc(snap["sync_wire_bytes"])
+    reg.gauge("chaos_control_replicas",
+              "Deputies holding a scheduler-state replica"
+              ).set(snap["replicas"])
+    reg.gauge("chaos_control_leaderless",
+              "1 while no scheduler can grant requests").set(
+        1.0 if snap["leaderless"] else 0.0)
+    reg.gauge("chaos_control_frozen",
+              "1 after a no-quorum election froze the cluster").set(
+        1.0 if snap["frozen"] else 0.0)
+
+
 def collect_ledger(reg: MetricsRegistry, ledger) -> None:
     """Engine-level metrics derived purely from ledger records: per-fault-
     class TTR histograms, detection-latency histograms, recovery-action
@@ -997,6 +1072,32 @@ def collect_trainer(reg: MetricsRegistry, trainer) -> None:
               "Devices currently training").set(snap["n_active"])
     reg.counter("chaos_trainer_steps_total",
                 "Optimizer steps taken").inc(snap["step_count"])
+
+
+def collect_backend(reg: MetricsRegistry, backend, ledger, *,
+                    report=None, now=None) -> MetricsRegistry:
+    """One-stop scrape of a finished ``SimBackend`` replay: network,
+    monitor, control plane, scheduler counters, ledger-derived histograms,
+    and (when provided) the GoodPut report."""
+    snap = backend.metrics_snapshot(now=now)
+    collect_network(reg, backend.cluster.net, now=now)
+    collect_monitor(reg, backend.cluster.scheduler.monitor, now=now)
+    collect_control(reg, backend.control)
+    collect_ledger(reg, ledger)
+    reg.counter("chaos_replication_payload_bytes_total",
+                "Pre-codec payload bytes of replication streams"
+                ).inc(snap["replication_payload_bytes"])
+    reg.counter("chaos_replication_wire_bytes_total",
+                "Post-codec wire bytes of replication streams"
+                ).inc(snap["replication_wire_bytes"])
+    reg.gauge("chaos_engine_active_nodes",
+              "Active nodes at scrape time").set(snap["n_active"])
+    reg.gauge("chaos_engine_degraded",
+              "1 after park-and-degrade relaxed redundancy").set(
+        1.0 if snap["degraded"] else 0.0)
+    if report is not None:
+        collect_goodput(reg, report)
+    return reg
 
 
 def collect_trainer_backend(reg: MetricsRegistry, backend, ledger, *,

@@ -409,10 +409,10 @@ class ElasticTrainer:
                         policy="fixed",
                         ) -> EventLedger:
         """Drive this trainer with a churn trace through the same
-        :class:`~repro_torch.core.engine.ChurnEngine` pipeline the JAX
+        :class:`~repro_torch.core.engine.ChurnEngine` pipeline the
         simulator uses. ``policy`` selects the recovery policy
-        (``repro_torch.core.recovery``) — the same spec the JAX
-        ``SimBackend`` gets yields the same decisions on the same trace.
+        (``repro_torch.core.recovery``) — the same spec ``SimBackend``
+        gets yields the same decisions on the same trace.
         ``batch_fn()`` gives the global batch of each step taken before an
         event. Returns the event ledger; per-event wall times land in
         ``self.events``, and the replay's backend stays in

@@ -1,15 +1,15 @@
 """Scenario traces: ordered churn-event lists with a JSONL on-disk format,
 from ``repro/scenarios/trace.py``.
 
-The file format is the JAX package's, so a trace made by its generators
-and saved there replays here against the port's trainer:
+A trace is the unit of reproducibility: the same file replays through the
+discrete-event simulator (``repro_torch.core.engine.SimBackend``) and
+through the real trainer (``repro_torch.elastic.TrainerBackend``). The
+file format is the JAX package's, so a trace saved by either package
+replays in the other:
 
     {"scenario": "poisson-churn", "seed": 7, "meta": {...}}
     {"t": 3.1, "kind": "join", "node": 1000, "links": {"2": [512.0, 0.01]}}
     {"t": 4.7, "kind": "leave", "node": 5}
-
-The generators build on ``Topology``, which is not ported; they come with
-the simulator substrate.
 """
 from __future__ import annotations
 

@@ -9,6 +9,9 @@ the port's loader and replayed through the port's ``TrainerBackend``.
   decisions and the span stream equal the JAX simulator's
   (``decision_digest``, and ``span_digest``, the JAX function and the
   port's alike, on the port's ledger).
+* The port's own generators write the same trace files, and the port's
+  ``run_trace_sim`` gives the JAX simulator's ledger, so the trainer is
+  held to the port's simulator as well.
 * The trainer's recovery tiers restore bit for bit, and the reshard and
   recovery layers decide as the JAX ones do.
 """
@@ -16,6 +19,7 @@ import importlib.util
 import math
 import pathlib
 import sys
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -50,10 +54,14 @@ from repro_torch.core import plans as tplans
 from repro_torch.core import recovery as trecovery
 from repro_torch.core import goodput as tgoodput
 from repro_torch.core import telemetry as ttelemetry
+from repro_torch.core import topology as ttopology
 from repro_torch.core.engine import ChurnEngine, ChurnEvent
+from repro_torch.core.engine import run_trace_sim as port_run_trace_sim
+from repro_torch.core.negotiation import SimCluster as PortSimCluster
 from repro_torch.core.replication import build_manifest, flatten_state
 from repro_torch.elastic import ElasticTrainer, LogicalDevice, TrainerBackend
 from repro_torch.models import build_model
+from repro_torch import scenarios as tscenarios
 from repro_torch.scenarios import ScenarioTrace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -75,20 +83,39 @@ def _int8_joins(trace):
     return trace
 
 
-#: name -> (trace factory, TrainerBackend kwargs), the JAX generators.
+def _port_topo():
+    return ttopology.random_edge_topology(12, seed=1)
+
+
+#: The generators and the topology of each package.
+JAX_GEN = SimpleNamespace(
+    topo=_topo, mixed_faults=mixed_faults, reshard_churn=reshard_churn,
+    checkpointed_training=checkpointed_training,
+    scheduler_churn=scheduler_churn, link_flaps=link_flaps,
+    poisson_churn=poisson_churn)
+PORT_GEN = SimpleNamespace(
+    topo=_port_topo, mixed_faults=tscenarios.mixed_faults,
+    reshard_churn=tscenarios.reshard_churn,
+    checkpointed_training=tscenarios.checkpointed_training,
+    scheduler_churn=tscenarios.scheduler_churn,
+    link_flaps=tscenarios.link_flaps, poisson_churn=tscenarios.poisson_churn)
+
+#: name -> (trace factory over a package's generators, TrainerBackend kwargs).
 TRACES = {
-    "mixed_faults": (lambda: mixed_faults(_topo(), seed=5, horizon_s=120.0), {}),
-    "reshard_churn": (lambda: reshard_churn(sorted(_topo().active_nodes()),
-                                            seed=4, n_failures=4, n_joins=2),
+    "mixed_faults": (lambda G: G.mixed_faults(G.topo(), seed=5, horizon_s=120.0),
+                     {}),
+    "reshard_churn": (lambda G: G.reshard_churn(sorted(G.topo().active_nodes()),
+                                                seed=4, n_failures=4, n_joins=2),
                       {"reshard": "auto"}),
-    "checkpointed_training": (lambda: checkpointed_training(
-        sorted(_topo().active_nodes()), seed=3, horizon_s=150.0), {}),
-    "scheduler_churn": (lambda: scheduler_churn(_topo(), seed=2, horizon_s=60.0,
-                                                n_joins_after=2), {}),
-    "link_flaps": (lambda: link_flaps(_topo(), seed=6, horizon_s=60.0,
-                                      n_flaps=5), {}),
-    "poisson_churn_int8": (lambda: _int8_joins(poisson_churn(
-        sorted(_topo().active_nodes()), seed=7, horizon_s=150.0,
+    "checkpointed_training": (lambda G: G.checkpointed_training(
+        sorted(G.topo().active_nodes()), seed=3, horizon_s=150.0), {}),
+    "scheduler_churn": (lambda G: G.scheduler_churn(G.topo(), seed=2,
+                                                    horizon_s=60.0,
+                                                    n_joins_after=2), {}),
+    "link_flaps": (lambda G: G.link_flaps(G.topo(), seed=6, horizon_s=60.0,
+                                          n_flaps=5), {}),
+    "poisson_churn_int8": (lambda G: _int8_joins(G.poisson_churn(
+        sorted(G.topo().active_nodes()), seed=7, horizon_s=150.0,
         rate_join=0.05, rate_leave=0.05, failure_fraction=0.5)), {}),
 }
 
@@ -96,8 +123,15 @@ TRACES = {
 def _saved_and_loaded(name, tmp_path):
     """The trace saved by the JAX package, loaded by the JAX and the port
     loaders."""
-    path = TRACES[name][0]().save(tmp_path / f"{name}.jsonl")
+    path = TRACES[name][0](JAX_GEN).save(tmp_path / f"{name}.jsonl")
     return JaxScenarioTrace.load(path), ScenarioTrace.load(path)
+
+
+def _same_jsonl(jtrace, ttrace, tmp_path):
+    """The two traces save to the same bytes."""
+    a = pathlib.Path(jtrace.save(tmp_path / "jax_gen.jsonl")).read_bytes()
+    b = pathlib.Path(ttrace.save(tmp_path / "port_gen.jsonl")).read_bytes()
+    return a == b
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +150,10 @@ def test_trace_file_round_trips_across_packages(name, tmp_path):
     jtrace.save(tmp_path / "jax_again.jsonl")
     assert (tmp_path / "again.jsonl").read_bytes() == \
         (tmp_path / "jax_again.jsonl").read_bytes()
+    # The port's generators write the same file.
+    TRACES[name][0](PORT_GEN).save(tmp_path / "port_gen.jsonl")
+    assert (tmp_path / "port_gen.jsonl").read_bytes() == \
+        (tmp_path / f"{name}.jsonl").read_bytes()
 
 
 @pytest.mark.parametrize("kw", [dict(kind="bogus"),
@@ -277,7 +315,7 @@ def _batch_fn(tr, seed=0):
     return lambda: {"tokens": rng.integers(0, 256, size=(tr.global_batch, SEQ + 1))}
 
 
-def test_real_trainer_decision_digest_matches_simulator(gpt2_state):
+def test_real_trainer_decision_digest_matches_simulator(gpt2_state, tmp_path):
     """tests/test_recovery_policy.py's adaptive parity trace, replayed on
     the port's trainer with a step before every event."""
     S, sizes = 64 * MB, [2 * MB] * 32
@@ -287,6 +325,16 @@ def test_real_trainer_decision_digest_matches_simulator(gpt2_state):
     cl = SimCluster(topo, state_bytes=S, tensor_sizes=sizes)
     cl.train(1)
     sim_ledger, _ = run_trace_sim(cl, trace, policy="adaptive", reshard="auto")
+    # The port's generator and simulator give the same trace and decisions.
+    ptrace = tscenarios.reshard_churn(nodes, seed=4, n_failures=4, n_joins=0)
+    assert _same_jsonl(trace, ptrace, tmp_path)
+    pcl = PortSimCluster(_port_topo(), state_bytes=S, tensor_sizes=sizes)
+    pcl.train(1)
+    port_sim_ledger, _ = port_run_trace_sim(pcl, ptrace, policy="adaptive",
+                                            reshard="auto")
+    assert port_sim_ledger.canonical_bytes() == sim_ledger.canonical_bytes()
+    assert trecovery.decision_digest(port_sim_ledger) == \
+        decision_digest(sim_ledger)
     tr = _trainer(gpt2_state, nodes)
     ledger = tr.replay_scenario([ChurnEvent.from_json(e.to_json()) for e in trace],
                                 batch_fn=_batch_fn(tr), policy="adaptive",
@@ -295,6 +343,8 @@ def test_real_trainer_decision_digest_matches_simulator(gpt2_state):
     assert n_decided == sum(1 for r in sim_ledger
                             if r.action == "recovery-decided") > 0
     assert decision_digest(ledger) == decision_digest(sim_ledger)
+    assert trecovery.decision_digest(ledger) == \
+        trecovery.decision_digest(port_sim_ledger)
     assert tr.step_count == len(trace) and len(tr.active) == 8
     reshards = [e for e in tr.events if e.kind == "reshard"]
     assert reshards and tr.tp == reshards[-1].plan_summary["shape"][1]
@@ -309,6 +359,11 @@ def test_real_trainer_forced_park_matches_simulator(gpt2_state):
     cl = SimCluster(topo, state_bytes=32 * MB, tensor_sizes=[MB] * 32)
     cl.train(1)
     sim_ledger, _ = run_trace_sim(cl, events, policy="fixed")
+    pcl = PortSimCluster(_port_topo(), state_bytes=32 * MB, tensor_sizes=[MB] * 32)
+    pcl.train(1)
+    port_sim_ledger, _ = port_run_trace_sim(
+        pcl, [ChurnEvent.from_json(e.to_json()) for e in events], policy="fixed")
+    assert port_sim_ledger.canonical_bytes() == sim_ledger.canonical_bytes()
     tr = _trainer(gpt2_state, nodes)
     backend = TrainerBackend(tr, batch_fn=_batch_fn(tr), min_active=2,
                              state_bytes=32 * MB, tensor_sizes=[MB] * 32,
@@ -316,12 +371,14 @@ def test_real_trainer_forced_park_matches_simulator(gpt2_state):
     ledger = ChurnEngine(backend).run(
         [ChurnEvent.from_json(e.to_json()) for e in events])
     assert decision_digest(ledger) == decision_digest(sim_ledger)
+    assert trecovery.decision_digest(ledger) == \
+        trecovery.decision_digest(port_sim_ledger)
     assert [r.subject for r in ledger if r.action == "parked-degraded"] == [(5,)]
     # Unmapped trace nodes shed the newest devices, as in the JAX backend.
     assert backend.degraded and tr.device_ids() == nodes[:10]
 
 
-def test_real_trainer_span_digest_matches_simulator(gpt2_state):
+def test_real_trainer_span_digest_matches_simulator(gpt2_state, tmp_path):
     """tests/test_telemetry.py's mixed_faults trace: node faults, lossy
     links, a scheduler fault, checkpoint requests and two joins."""
     topo = _topo()
@@ -330,12 +387,20 @@ def test_real_trainer_span_digest_matches_simulator(gpt2_state):
     cl = SimCluster(topo, state_bytes=32 * MB, tensor_sizes=[MB] * 32)
     cl.train(1)
     sim_ledger, _ = run_trace_sim(cl, list(trace))
+    ptrace = tscenarios.mixed_faults(_port_topo(), seed=5, horizon_s=120.0)
+    assert _same_jsonl(trace, ptrace, tmp_path)
+    pcl = PortSimCluster(_port_topo(), state_bytes=32 * MB, tensor_sizes=[MB] * 32)
+    pcl.train(1)
+    port_sim_ledger, _ = port_run_trace_sim(pcl, list(ptrace))
+    assert port_sim_ledger.canonical_bytes() == sim_ledger.canonical_bytes()
     tr = _trainer(gpt2_state, nodes, spare=4)
     ledger = tr.replay_scenario([ChurnEvent.from_json(e.to_json()) for e in trace],
                                 batch_fn=_batch_fn(tr), state_bytes=32 * MB,
                                 tensor_sizes=[MB] * 32)
     assert span_digest(ledger) == span_digest(sim_ledger)
     assert ttelemetry.span_digest(ledger) == span_digest(sim_ledger)
+    assert ttelemetry.span_digest(ledger) == \
+        ttelemetry.span_digest(port_sim_ledger)
     assert {r.action for r in ledger} >= {"scale-out", "node-failed",
                                           "failover", "link-lossy",
                                           "ckpt-skipped-no-checkpointer"}

@@ -10,10 +10,18 @@ leave in mid-replication (``tests/test_engine.py``).
 Together they reach every GoodPut category. On each, the two packages must
 give byte-identical reports, span forests, validation lists, digests,
 Chrome traces, markdown and metrics exposition.
+
+Each case also replays through the port's own simulator
+(``repro_torch.core.engine.run_trace_goodput``): its ledger must equal the
+copy byte for byte, its analytics the JAX package's, and the simulator
+collectors (``collect_network``, ``collect_monitor``, ``collect_control``,
+``collect_backend``) must scrape the same exposition from both packages'
+backends.
 """
 import copy
 import json
 import math
+from types import SimpleNamespace
 
 import pytest
 
@@ -22,10 +30,15 @@ from repro.core import SimCluster, random_edge_topology
 from repro.core import goodput as jg
 from repro.core import telemetry as jt
 from repro.core.engine import EventLedger as JaxEventLedger
+from repro.core import engine as jengine
 from repro.core.engine import run_trace_goodput
 from repro.scenarios import mixed_faults
+from repro_torch import scenarios as tscenarios
+from repro_torch.core import engine as tengine
 from repro_torch.core import goodput as tg
+from repro_torch.core import negotiation as tnegotiation
 from repro_torch.core import telemetry as tt
+from repro_torch.core import topology as ttopology
 from repro_torch.core.engine import EventLedger
 from test_failover import _split_topology
 from test_goodput import _cluster, _traces
@@ -34,67 +47,119 @@ MB = 2 ** 20
 CKPT = {"checkpoint": "adaptive", "policy": "fixed-checkpoint"}
 
 
-def _no_quorum():
+def _port_split_topology(side_a, side_b, cross):
+    """tests/test_failover.py's ``_split_topology`` on the port's
+    ``Topology``."""
+    topo = ttopology.Topology()
+    for n in side_a + side_b:
+        topo.add_node(n, compute_s=1.0)
+    for side in (side_a, side_b):
+        for a, b in zip(side, side[1:]):
+            topo.add_link(a, b, ttopology.Link(500.0, 0.005))
+        if len(side) > 2:
+            topo.add_link(side[0], side[-1], ttopology.Link(500.0, 0.005))
+    for u, v in cross:
+        topo.add_link(u, v, ttopology.Link(300.0, 0.01))
+    return topo
+
+
+def _port_cluster():
+    """tests/test_goodput.py's ``_cluster`` on the port."""
+    return tnegotiation.SimCluster(ttopology.random_edge_topology(10, seed=3),
+                                   state_bytes=16 * MB, tensor_sizes=[MB] * 16)
+
+
+def _port_traces():
+    """tests/test_goodput.py's ``_traces`` through the port's generators."""
+    topo = ttopology.random_edge_topology(10, seed=3)
+    nodes = topo.active_nodes()
+    S = tscenarios
+    return {
+        "poisson": S.poisson_churn(nodes, seed=7, horizon_s=120.0,
+                                   rate_join=0.05, rate_leave=0.04),
+        "diurnal": S.diurnal_waves(nodes, seed=7, horizon_s=120.0,
+                                   period_s=60.0, peak_rate=0.08),
+        "partition": S.regional_partition(topo, seed=7, t_cut=20.0,
+                                          heal_after_s=30.0),
+        "detector_stress": S.detector_stress(topo, seed=7, horizon_s=60.0),
+        "scheduler_churn": S.scheduler_churn(topo, seed=7, horizon_s=60.0),
+    }
+
+
+#: What the case factories take from each package.
+JAX_SIM = SimpleNamespace(
+    SimCluster=SimCluster, random_edge_topology=random_edge_topology,
+    ChurnEvent=JaxChurnEvent, mixed_faults=mixed_faults,
+    split_topology=_split_topology, cluster=_cluster, traces=_traces)
+PORT_SIM = SimpleNamespace(
+    SimCluster=tnegotiation.SimCluster,
+    random_edge_topology=ttopology.random_edge_topology,
+    ChurnEvent=tengine.ChurnEvent, mixed_faults=tscenarios.mixed_faults,
+    split_topology=_port_split_topology, cluster=_port_cluster,
+    traces=_port_traces)
+
+
+def _no_quorum(P=JAX_SIM):
     """tests/test_failover.py's 3 | 3 split: the election gives up and the
     cluster freezes (the ``leaderless`` category)."""
     cross = [(2, 3), (0, 4)]
-    cl = SimCluster(_split_topology([0, 1, 2], [3, 4, 5], cross),
-                    state_bytes=16 * MB, tensor_sizes=[MB] * 16)
+    cl = P.SimCluster(P.split_topology([0, 1, 2], [3, 4, 5], cross),
+                      state_bytes=16 * MB, tensor_sizes=[MB] * 16)
     cl.train(1)
     t0 = cl.sim.now
-    events = [JaxChurnEvent(t=t0 + 0.5 + 0.01 * i, kind="link-failure", u=u, v=v)
+    events = [P.ChurnEvent(t=t0 + 0.5 + 0.01 * i, kind="link-failure", u=u, v=v)
               for i, (u, v) in enumerate(cross)]
-    events += [JaxChurnEvent(t=t0 + 2.0, kind="scheduler-fault"),
-               JaxChurnEvent(t=t0 + 5.0, kind="join", node=100,
-                             links={1: (200.0, 0.01), 2: (300.0, 0.01)})]
+    events += [P.ChurnEvent(t=t0 + 2.0, kind="scheduler-fault"),
+               P.ChurnEvent(t=t0 + 5.0, kind="join", node=100,
+                            links={1: (200.0, 0.01), 2: (300.0, 0.01)})]
     return cl, events
 
 
-def _readoption():
+def _readoption(P=JAX_SIM):
     """tests/test_failover.py's re-adoption story: joins in flight when the
     scheduler dies, one re-adopted and one rebuilt (flows across seqs)."""
-    topo = random_edge_topology(8, seed=0)
-    cl = SimCluster(topo, state_bytes=128 * MB, tensor_sizes=[MB] * 128)
+    topo = P.random_edge_topology(8, seed=0)
+    cl = P.SimCluster(topo, state_bytes=128 * MB, tensor_sizes=[MB] * 128)
     cl.train(1)
     t0 = cl.sim.now
     u, v = [e for e in sorted(cl.topo.g.edges) if cl.scheduler.node not in e][0]
     return cl, [
-        JaxChurnEvent(t=t0 + 0.5, kind="link-loss", u=u, v=v, loss_rate=0.0),
-        JaxChurnEvent(t=t0 + 1.5, kind="join", node=100,
-                      links={1: (50.0, 0.01), 2: (60.0, 0.01)}),
-        JaxChurnEvent(t=t0 + 5.0, kind="join", node=101,
-                      links={2: (50.0, 0.01), 3: (60.0, 0.01)}),
-        JaxChurnEvent(t=t0 + 6.0, kind="scheduler-fault"),
+        P.ChurnEvent(t=t0 + 0.5, kind="link-loss", u=u, v=v, loss_rate=0.0),
+        P.ChurnEvent(t=t0 + 1.5, kind="join", node=100,
+                     links={1: (50.0, 0.01), 2: (60.0, 0.01)}),
+        P.ChurnEvent(t=t0 + 5.0, kind="join", node=101,
+                     links={2: (50.0, 0.01), 3: (60.0, 0.01)}),
+        P.ChurnEvent(t=t0 + 6.0, kind="scheduler-fault"),
     ]
 
 
-def _replan():
+def _replan(P=JAX_SIM):
     """tests/test_engine.py's leave in mid-replication: the join is
     re-planned from the survivors (``replication``)."""
-    topo = random_edge_topology(8, seed=0)
-    cl = SimCluster(topo, state_bytes=200 * MB, tensor_sizes=[4 * MB] * 50)
+    topo = P.random_edge_topology(8, seed=0)
+    cl = P.SimCluster(topo, state_bytes=200 * MB, tensor_sizes=[4 * MB] * 50)
     cl.train(1)
     t0 = cl.sim.now
     return cl, [
-        JaxChurnEvent(t=t0 + 0.1, kind="join", node=100,
-                      links={1: (200.0, 0.01), 2: (300.0, 0.01), 3: (150.0, 0.02)}),
-        JaxChurnEvent(t=t0 + 1.2, kind="leave", node=2),
+        P.ChurnEvent(t=t0 + 0.1, kind="join", node=100,
+                     links={1: (200.0, 0.01), 2: (300.0, 0.01), 3: (150.0, 0.02)}),
+        P.ChurnEvent(t=t0 + 1.2, kind="leave", node=2),
     ]
 
 
 def _from_traces(name, kw):
-    def make():
-        cl = _cluster()
+    def make(P=JAX_SIM):
+        cl = P.cluster()
         cl.train(1)
-        return cl, list(_traces()[name])
+        return cl, list(P.traces()[name])
     return make, kw
 
 
-def _mixed_faults():
-    cl = _cluster()
+def _mixed_faults(P=JAX_SIM):
+    cl = P.cluster()
     cl.train(1)
-    return cl, list(mixed_faults(random_edge_topology(10, seed=3), seed=5,
-                                 horizon_s=90.0))
+    return cl, list(P.mixed_faults(P.random_edge_topology(10, seed=3), seed=5,
+                                   horizon_s=90.0))
 
 
 #: name -> (cluster and events factory, run_trace_goodput kwargs).
@@ -225,6 +290,64 @@ def test_markdown_and_exposition_match_jax(name, replays):
     tt.collect_trainer_backend(treg, _FixedBackend(), tledger, report=treport)
     jt.collect_trainer_backend(jreg, _FixedBackend(), jledger, report=jreport)
     assert treg.exposition().encode() == jreg.exposition().encode()
+
+
+@pytest.fixture(scope="module")
+def port_replays():
+    """name -> the port's own ``run_trace_goodput`` replay: (ledger,
+    report)."""
+    out = {}
+    for name, (make, kw) in CASES.items():
+        cl, events = make(PORT_SIM)
+        ledger, _, report = tengine.run_trace_goodput(cl, events, **kw)
+        out[name] = (ledger, report)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_port_simulator_ledger_equals_the_copy(name, replays, port_replays):
+    jledger, tcopy, report = replays[name]
+    ledger, treport = port_replays[name]
+    assert ledger.canonical_bytes() == tcopy.canonical_bytes()
+    assert json.dumps(treport.to_json(), sort_keys=True) == \
+        json.dumps(report.to_json(), sort_keys=True)
+    w = _window(report)
+    ours, theirs = tt.build_spans(ledger, **w), jt.build_spans(jledger, **w)
+    assert _forest_dump(ours) == _forest_dump(theirs)
+    assert tt.validate(ledger, ours) == [] and \
+        tt.span_digest(ledger, ours) == jt.span_digest(jledger, theirs)
+    assert tt.detection_rows(ledger) == jt.detection_rows(jledger)
+    assert tt.ttr_rows(ledger) == jt.ttr_rows(jledger)
+    assert tt.trace_events(ours) == jt.trace_events(theirs)
+    assert tt.markdown_report(ledger, ours, report=treport, title=name) == \
+        jt.markdown_report(jledger, theirs, report=report, title=name)
+
+
+def _scrapes(mod, engine, make, P, kw):
+    """Each simulator collector's exposition after a replay, and all of
+    them through ``collect_backend``."""
+    cl, events = make(P)
+    backend = engine.SimBackend(cl, accounting=True, **kw)
+    ledger = engine.ChurnEngine(backend).run(events)
+    out = []
+    for collect, args, kwargs in (
+            (mod.collect_network, (cl.net,), {"now": cl.sim.now}),
+            (mod.collect_monitor, (cl.scheduler.monitor,), {"now": cl.sim.now}),
+            (mod.collect_control, (backend.control,), {}),
+            (mod.collect_backend, (backend, ledger), {"report": backend.goodput})):
+        reg = mod.MetricsRegistry()
+        collect(reg, *args, **kwargs)
+        out.append(reg.exposition().encode())
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_simulator_collectors_match_jax(name):
+    make, kw = CASES[name]
+    ours = _scrapes(tt, tengine, make, PORT_SIM, kw)
+    theirs = _scrapes(jt, jengine, make, JAX_SIM, kw)
+    assert ours == theirs
+    assert b"chaos_network_bytes_total" in ours[-1]
 
 
 def test_trainer_exposition_matches_jax():
