@@ -11,18 +11,22 @@ Phases, each of which fails hard (any mismatch exits non-zero):
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (read from the configs, at both global
    batches, 8 and 12, and at the serving runs' prefill and decode shapes:
-   attention over the cache at q_offsets 0 to 1151 and a ragged Skv, WKV6
-   at S 1 to 33 from a state) and over the JAX kernel sweeps; the many-leaf encode
-   and decode (one launch per state) bit for bit against the per-leaf plain
-   versions, the decode over all of GPT-2's fp32 leaf shapes and a ragged
-   set;
-3. the main paths, one per trained family, each at full width and full
-   depth under ``ElasticTrainer`` with int8 state replication — 3 steps on
-   2 logical devices, a scale-out, 2 steps on 3, a scale-in, 2 steps on 2 —
-   with the launch counters zeroed just before each path, read just after
-   it and held to the exact counts its config gives: GPT-2 (codec, flash
-   attention), RWKV-6 1.6B (codec, WKV6) and Zamba2 1.2B (codec, SSD, flash
-   attention); each path's full state encoded by the many-leaf kernel bit
+   attention over the cache at q_offsets 0 to the cache's last row and a
+   ragged Skv, gemma2's local (window 4,096) and global layers with softcap
+   50 and scale 0.0625 either side of where the window binds, granite's
+   48:1 and llama3's 128:8 at full width; WKV6 at S 1 to 33 from a state)
+   and over the JAX kernel sweeps; the many-leaf encode and decode (one
+   launch per state) bit for bit against the per-leaf plain versions, the
+   decode over all of GPT-2's fp32 leaf shapes and a ragged set; adamw8bit's
+   block quantizer on TinyLlama's embedding bit for bit as on the CPU;
+3. the main paths, one per trained family and TinyLlama, each at full
+   width and full depth under ``ElasticTrainer`` with int8 state
+   replication — 3 steps on 2 logical devices, a scale-out, 2 steps on 3,
+   a scale-in, 2 steps on 2 — with the launch counters zeroed just before
+   each path, read just after it and held to the exact counts its config
+   gives: GPT-2 (codec, flash attention), RWKV-6 1.6B (codec, WKV6), Zamba2
+   1.2B (codec, SSD, flash attention) and TinyLlama 1.1B (codec, flash
+   attention at GQA 32:4); each path's full state encoded by the many-leaf kernel bit
    for bit as the per-leaf plain encode; one scale-out's phases timed apart
    on the trainer's state (plan, encode, decode, round-trip check), the
    decoded state bit for bit as the per-leaf plain decode; one profiled
@@ -48,10 +52,13 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    ``train_elastic`` on GPT-2 at full width and depth, global batch 16 -> 20
    -> 16 over 4 -> 5 -> 4 logical devices, launches held to the exact
    counts, step times, the scale-out and peak memory;
-3d. serving: GPT-2, RWKV-6 1.6B and Zamba2 1.2B at full width and depth
-   through the serving launcher's ``generate`` (``Model.prefill``,
-   ``Model.decode_step``): batch 8, a 1024-token prompt, 128 greedy new
-   tokens, a cache of 1152 positions, bf16; launches held to the exact
+3d. serving: GPT-2, RWKV-6 1.6B, Zamba2 1.2B and TinyLlama 1.1B at full
+   width and depth through the serving launcher's ``generate``
+   (``Model.prefill``, ``Model.decode_step``): batch 8, a 1024-token
+   prompt, 128 greedy new tokens, a cache of 1152 positions, bf16; and
+   gemma2-27b at full width on 2 layers (one local, one global), batch 2,
+   a 4,608-token prompt (so that the window of 4,096 binds), 64 new
+   tokens; launches held to the exact
    counts; prefill ms, decode ms per token (median, p90; each step closed
    by a sync), decode tokens/s,
    the decode loop timed as one window with one sync, peak memory, the
@@ -61,11 +68,17 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    (RWKV-6, Zamba2); the bf16 drift of every decode step against the
    cache-free forward (reported, not gated); fp32 prefill and 7 forced
    decode steps against the cache-free fp32 forward at the same
-   tolerances, and planted faults (GPT-2: the cache written one slot off;
-   RWKV-6: ``x_last`` or the state not carried; Zamba2: the conv or the
-   SSM state not carried, the shared block's applications sharing one KV
-   cache, the cache written one slot off, RoPE from position 0 at decode)
-   that must fail that check;
+   tolerances, and planted faults (the dense family: the cache written one
+   slot off, and for gemma2 the local layer without its window, the global
+   layer with it, the attention softcap dropped; RWKV-6: ``x_last`` or the
+   state not carried; Zamba2: the conv or the SSM state not carried, the
+   shared block's applications sharing one KV cache, the cache written one
+   slot off, RoPE from position 0 at decode) that must fail that check;
+3e. granite-34b and llama3-405b, which fit no card, reduced: 2 steps
+   under ``ElasticTrainer`` with the int8 codec, a scale-out that leaves
+   the state bit-unchanged (llama3's adamw8bit codes ship raw, their fp32
+   scales through the codec), a step, exact launches; a served request
+   with exact launches and ``serve_fp32_check``;
 4. a reference check on a small input: each reduced model's loss and
    gradient norm through the kernels on the card against the plain
    versions on the CPU;
@@ -75,10 +88,11 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    also the device time (the kernels' own durations in a profiler trace)
    beside the CUDA-event window, which holds the host's dispatch too, and
    for the decode the library call ``torch.mul(codes, scales[:, None])``
-   leaf by leaf; the decode shapes of attention (GPT-2's and Zamba2's,
-   beside ``scaled_dot_product_attention``), WKV6 and SSD as device time
-   per launch, one input set per layer (per application of Zamba2's
-   shared block);
+   leaf by leaf; the decode shapes of attention (GPT-2's, Zamba2's,
+   TinyLlama's and gemma2's local and global layers, beside
+   ``scaled_dot_product_attention`` where it computes the same function:
+   it has no softcap), WKV6 and SSD as device time per launch, one input
+   set per layer (per application of Zamba2's shared block);
 6. the simulator substrate (``repro_torch.core``: topology on a stdlib
    graph, the event simulator, the cluster monitor, the negotiation
    protocols, the baselines), host Python that launches no kernel:
@@ -117,13 +131,14 @@ commit, unpacked), on the same inputs, in turns with this checkout's
 (baseline, kernel, kernel, baseline).
 
 It prints one JSON line per kernel, per path, for the self-healing phase,
-for the launcher and per serving run, the ``simulator`` line, the
-``churn`` line, the ``kernels`` line (launches summed
-over the paths, the self-healing replay, the launcher's in-process runs and
-the serving runs), the card's
+for the launcher, per serving run and per reduced dense run, the
+``simulator`` line, the ``churn`` line, the ``kernels`` line (launches
+summed over the paths, the self-healing replay, the launcher's in-process
+runs, the serving runs and the reduced dense runs), the card's
 name and power limit from ``nvidia-smi``, and last the line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository around it, it exits non-zero and prints
-no result.
+no result. The whole run has JAX, the JAX package and networkx set
+unimportable in ``sys.modules``; it logs its seconds before the JSON lines.
 """
 import bisect
 import contextlib
@@ -143,6 +158,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+#: What the port must run without: JAX, the JAX package and networkx.
+BLOCKED = ("networkx", "jax", "repro")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
@@ -208,15 +225,26 @@ SSD_BF16_EDGES = [
 ]
 # The main paths, one per trained family, and their steps: before the
 # scale-out (2 logical devices), between it and the scale-in (3), after (2).
-PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b"]
+PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b"]
 STEPS = (3, 2, 2)
 MAIN_BATCHES = (PER_DEVICE_BATCH * 2, PER_DEVICE_BATCH * 3)
 # The serving runs (phase 3d), one per served family at full width and
 # depth: batch 8, a 1024-token prompt, 128 greedy new tokens (the prefill's
 # and 127 decode steps'), and so a cache of 1152 positions.
-SERVE_PATHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b")
+SERVE_PATHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 128
 SERVE_CACHE = SERVE_PROMPT + SERVE_TOKENS
+# gemma2-27b served at full width on a cut depth: one local (window 4,096)
+# and one global layer, batch 2, a 4,608-token prompt (so that the local
+# layer's window binds) and 64 new tokens.
+GEMMA2_LAYERS = 2
+GEMMA2_BATCH, GEMMA2_PROMPT, GEMMA2_TOKENS = 2, 4608, 64
+# The dense configs that fit no card, run reduced (phase 3e): a short
+# elastic run with one int8 scale-out and a served request each.
+REDUCED_DENSE = ("granite-34b", "llama3-405b")
+# The attention kernel's cases at full width for configs the card runs
+# only reduced: (name, batch).
+FULL_WIDTH_ATTENTION = (("granite-34b", SERVE_BATCH), ("llama3-405b", 1))
 # Teacher-forced decode steps after the prefill in the fp32 check.
 FP32_DECODE_STEPS = 7
 # The decode attention's q_offsets held against the plain version: the
@@ -441,69 +469,118 @@ def main_shapes():
     return shapes
 
 
-def serve_attention_cases():
-    """``(label, case, rope_theta, q_offset)`` at the shapes the serving
-    runs give the kernel, for each served family with attention (GPT-2;
-    Zamba2, whose queries and keys go through RoPE): the prefill of the
-    prompt into the cache (Sq 1024 over Skv 1152, 128 rows masked), the
-    decode over the whole cache at each of ``DECODE_Q_OFFSETS``, and for
-    GPT-2 over a ragged Skv of 1000, bf16 as the runs give them."""
+def gemma2_cut():
+    """gemma2-27b at full width on ``GEMMA2_LAYERS`` layers: one local and
+    one global (a config chosen here, not an option of the port)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
 
+    return dataclasses.replace(get_config("gemma2-27b"), n_layers=GEMMA2_LAYERS)
+
+
+def serve_runs():
+    """``(label, cfg, batch, prompt, new tokens)`` of each serving run
+    (phase 3d): ``SERVE_PATHS`` at full width and depth, then gemma2's cut."""
+    from repro_torch.configs import get_config
+
+    return ([(name, get_config(name), SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS)
+             for name in SERVE_PATHS]
+            + [(f"gemma2-27b, {GEMMA2_LAYERS} layers", gemma2_cut(), GEMMA2_BATCH,
+                GEMMA2_PROMPT, GEMMA2_TOKENS)])
+
+
+def decode_q_offsets(cfg, cache_len):
+    """``DECODE_Q_OFFSETS``, and for a longer cache its last row; with a
+    window, the rows either side of where it starts to bind."""
+    offsets = set(DECODE_Q_OFFSETS) | {cache_len - 1}
+    if cfg.sliding_window:
+        offsets |= {cfg.sliding_window - 1, cfg.sliding_window}
+    return sorted(o for o in offsets if o < cache_len)
+
+
+def layer_kinds(cfg):
+    """``(label, window)`` of each kind of attention layer of ``cfg``:
+    gemma2's local (window) and global (none) layers, or one kind."""
+    if cfg.alt_local_global and cfg.sliding_window:
+        return [(" local", cfg.sliding_window), (" global", 0)]
+    return [("", cfg.sliding_window)]
+
+
+def serve_attention_cases():
+    """``(label, case, rope_theta, q_offset, scale)`` at the shapes the
+    serving runs give the kernel, for each with attention (GPT-2, TinyLlama,
+    gemma2's cut, each kind of its layers; Zamba2, whose queries and keys go
+    through RoPE), and at full width for the dense configs the card runs
+    only reduced (``FULL_WIDTH_ATTENTION``): the prefill of the prompt into
+    the cache (its last rows masked), the decode over the whole cache at
+    each of ``decode_q_offsets``, and for GPT-2 over a ragged Skv of 1000,
+    bf16 as the runs give them; scale ``query_scale`` where the config sets
+    one (None: 1/sqrt(hd))."""
+    from repro_torch.configs import get_config
+
+    runs = [(label, cfg, B, P, P + n) for label, cfg, B, P, n in serve_runs()]
+    runs += [(name, get_config(name), B, SERVE_PROMPT, SERVE_CACHE)
+             for name, B in FULL_WIDTH_ATTENTION]
     cases = []
-    for name in SERVE_PATHS:
-        cfg = get_config(name)
+    for label, cfg, B, P, cache_len in runs:
         if cfg.family not in ("dense", "hybrid"):
             continue
-        B, H, K, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         theta = cfg.rope_theta if cfg.positions == "rope" else 0.0
+        for kind, window in layer_kinds(cfg):
+            def case(Sq, Skv):
+                return (B, Sq, Skv, H, K, hd, "causal", window, 0, cfg.attn_softcap,
+                        torch.bfloat16)
 
-        def case(Sq, Skv):
-            return (B, Sq, Skv, H, K, hd, "causal", 0, 0, cfg.attn_softcap,
-                    torch.bfloat16)
-
-        cases += ([(f"{name} serve prefill", case(SERVE_PROMPT, SERVE_CACHE), theta, 0)]
-                  + [(f"{name} serve decode q_offset={o}", case(1, SERVE_CACHE),
-                      theta, o) for o in DECODE_Q_OFFSETS])
-        if cfg.family == "dense":
-            cases.append((f"{name} serve decode ragged Skv", case(1, 1000), theta, 999))
+            name = f"{label}{kind}"
+            cases += ([(f"{name} serve prefill", case(P, cache_len), theta, 0,
+                        cfg.query_scale)]
+                      + [(f"{name} serve decode q_offset={o}", case(1, cache_len),
+                          theta, o, cfg.query_scale)
+                         for o in decode_q_offsets(cfg, cache_len)])
+        if label == "gpt2":
+            cases.append((f"{label} serve decode ragged Skv", case(1, 1000), theta,
+                          999, None))
     return cases
 
 
 def attention_cases():
-    """``(label, case, rope_theta, q_offset)``: the main paths' shapes, the
-    serving run's, then the JAX sweep and the bf16 edges; ``case`` in
-    ATTN_SWEEP's layout."""
+    """``(label, case, rope_theta, q_offset, scale)``: the main paths'
+    shapes, the serving runs', then the JAX sweep and the bf16 edges;
+    ``case`` in ATTN_SWEEP's layout, ``scale`` None for 1/sqrt(hd)."""
     cases = [(f"{path} B={B}", (B, SEQ, SEQ, H, K, hd, "causal", 0, 0, softcap,
-                                torch.bfloat16), theta, 0)
+                                torch.bfloat16), theta, 0, None)
              for path, (B, H, K, hd, softcap, theta)
              in main_shapes()["flash_attention"]]
     return (cases + serve_attention_cases()
-            + [(f"sweep {i}", c, 0.0, 0) for i, c in enumerate(ATTN_SWEEP)]
-            + [(f"sweep bf16 {i}", c, 0.0, 0) for i, c in enumerate(ATTN_BF16_EDGES)])
+            + [(f"sweep {i}", c, 0.0, 0, None) for i, c in enumerate(ATTN_SWEEP)]
+            + [(f"sweep bf16 {i}", c, 0.0, 0, None)
+               for i, c in enumerate(ATTN_BF16_EDGES)])
 
 
-def attention_case(fa, gen, case, theta=0.0, q_offset=0):
+def attention_case(fa, gen, case, theta=0.0, q_offset=0, scale=None):
     """The kernel against ``attention_plain`` at ``_tol`` on one case; q and
     k go through RoPE first where ``theta`` is given, as in a RoPE config's
-    attention; the queries sit at ``q_offset`` onwards. Every key row holds
-    data, so the rows the mask removes are random, not zero. Returns max
-    |kernel - plain|."""
+    attention; the queries sit at ``q_offset`` onwards; ``scale`` None is
+    1/sqrt(hd). Every key row holds data, so the rows the mask removes are
+    random, not zero. Returns max |kernel - plain|."""
     from repro_torch.models.layers import MaskSpec, rope
 
     B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+    scale = d ** -0.5 if scale is None else scale
     q = torch.randn((B, Sq, H, d), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, Skv, K, d), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, Skv, K, d), generator=gen, device="cuda").to(dt)
     if theta:
         q = rope(q, q_offset + torch.arange(Sq, device="cuda"), theta)
         k = rope(k, torch.arange(Skv, device="cuda"), theta)
-    out = fa.flash_attention_kernel(q, k, v, scale=d ** -0.5, softcap=softcap,
+    out = fa.flash_attention_kernel(q, k, v, scale=scale, softcap=softcap,
                                     kind=kind, window=window, prefix_len=prefix,
                                     q_offset=q_offset)
     ref = fa.attention_plain(q, k, v, MaskSpec(kind, window=window,
                                                prefix_len=prefix),
-                             scale=d ** -0.5, softcap=softcap, q_offset=q_offset)
+                             scale=scale, softcap=softcap, q_offset=q_offset)
     torch.testing.assert_close(out.float(), ref.float(), **tol(dt))
     return float((out.float() - ref.float()).abs().max())
 
@@ -512,13 +589,16 @@ def check_attention(fa, gen):
     """Every case of ``attention_cases``; returns the largest error at the
     main paths' shapes."""
     main_err = 0.0
-    for label, case, theta, q_offset in attention_cases():
-        err = attention_case(fa, gen, case, theta, q_offset)
+    for label, case, theta, q_offset, scale in attention_cases():
+        err = attention_case(fa, gen, case, theta, q_offset, scale)
         if not label.startswith("sweep"):
             main_err = max(main_err, err)
-            log(f"attention {label} {case[:6]} bf16 causal"
-                f"{', RoPE' if theta else ''}, q_offset {q_offset}: max "
-                f"|kernel - plain| {err:.3e} (rtol/atol 2e-2)")
+            extras = "".join(f", {name} {value}" for name, value in (
+                ("window", case[7]), ("softcap", case[9]), ("scale", scale),
+                ("RoPE", theta)) if value)
+            log(f"attention {label} {case[:6]} bf16 causal{extras}, q_offset "
+                f"{q_offset}: max |kernel - plain| {err:.3e} (rtol/atol 2e-2)")
+        torch.cuda.empty_cache()
     log(f"attention: {len(ATTN_SWEEP)} sweep cases and {len(ATTN_BF16_EDGES)} "
         f"bf16 edges within _tol")
     return main_err
@@ -694,6 +774,36 @@ def check_ssd(SD, gen):
     log(f"ssd: {len(SSD_SWEEP)} sweep cases and {len(SSD_BF16_EDGES)} bf16 "
         f"edges within _rec_tol")
     return main_err
+
+
+def check_q8(gen):
+    """adamw8bit's block quantizer on the card: ``_q8`` and ``_dq8_static``
+    on a TinyLlama-sized leaf (its 32,000 x 2,048 embedding, magnitudes
+    spread over 14 octaves from row to row as moments spread) give codes,
+    scales and dequantized values bit for bit as the same calls on the
+    CPU. Returns 0.0, the largest difference."""
+    import importlib
+
+    from repro_torch.configs import get_config
+
+    adamw = importlib.import_module("repro_torch.optim.adamw")
+    cfg = get_config("tinyllama-1.1b")
+    shape = (cfg.vocab, cfg.d_model)
+    spread = torch.exp(torch.rand((shape[0], 1), generator=gen, device="cuda")
+                       * -14.0 * math.log(2.0))
+    x = torch.randn(shape, generator=gen, device="cuda") * spread
+    codes, scale = adamw._q8(x)
+    host_codes, host_scale = adamw._q8(x.cpu())
+    back = adamw._dq8_static(codes, scale, shape)
+    host_back = adamw._dq8_static(host_codes, host_scale, shape)
+    if not (torch.equal(codes.cpu(), host_codes)
+            and torch.equal(_bytes(scale.cpu()), _bytes(host_scale))
+            and torch.equal(_bytes(back.cpu()), _bytes(host_back))):
+        raise AssertionError("adamw8bit _q8/_dq8_static on the card differ from the CPU")
+    log(f"adamw8bit: _q8 and _dq8_static on {shape} fp32 (block "
+        f"{adamw._block_of(shape[-1])}) bit-identical to the CPU: "
+        f"{codes.numel()} codes, {scale.numel()} scales")
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -1386,13 +1496,116 @@ def replica_tier(trainer, name):
 # ---------------------------------------------------------------------------
 
 
+def reduced_dense(ops, arch):
+    """Phase 3e: a dense config that fits no card (``REDUCED_DENSE``),
+    reduced: 2 steps under ``ElasticTrainer`` on 2 logical devices with the
+    int8 codec, a scale-out, a step on 3, the launches held to
+    ``expected_launches`` and the state bit-unchanged by the scale-out (for
+    llama3 its adamw8bit state: the int8 moment codes ship raw, their fp32
+    scales and the params through the codec); then one served request
+    through ``generate`` (batch 2, a 32-token prompt, 8 new tokens, exact
+    launches) and ``serve_fp32_check`` with the config's planted faults.
+    Returns the launches of both."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import replication as rep
+    from repro_torch.data import ShardedLoader, TokenStream
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    loader = ShardedLoader(TokenStream(cfg.vocab, SEQ, seed=0), 256, [0],
+                           PER_DEVICE_BATCH)
+    trainer = ElasticTrainer(model, initial=2, per_device_batch=PER_DEVICE_BATCH,
+                             link_model=link_model, codec="int8",
+                             on_reshard=loader.reshard)
+    trainer.init()
+    losses = []
+
+    def steps(n):
+        for _ in range(n):
+            toks = np.concatenate([loader.next_batch(i) for i in trainer.device_ids()])
+            losses.append(trainer.step({"tokens": toks})["loss"])
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    steps(2)
+    before = [leaf.detach().clone() for leaf in T.leaves(trainer.state)]
+    ev = trainer.scale_out()
+    unchanged = all(a.dtype == b.dtype and torch.equal(_bytes(a), _bytes(b))
+                    for a, b in zip(before, T.leaves(trainer.state)))
+    steps(1)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    n_coded = sum(1 for leaf in before if leaf.dtype == torch.float32 and leaf.numel())
+    expected = expected_launches(cfg, n_coded, steps=3)
+    kinds = {}
+    for e in rep.encode_state(trainer.state, "int8")[0]:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    n_int8 = sum(1 for leaf in before if leaf.dtype == torch.int8)
+    if not unchanged:
+        raise AssertionError(f"{arch} reduced: the scale-out changed the state")
+    if launches != expected:
+        raise AssertionError(f"{arch} reduced: launches {launches}, expected {expected}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch} reduced: non-finite loss {losses}")
+    if (cfg.optimizer == "adamw8bit") != (n_int8 > 0) or kinds.get("int8") != n_coded:
+        raise AssertionError(f"{arch} reduced: {n_int8} int8 leaves, encoded {kinds}")
+    codec = ev.plan_summary["codec"]
+    del before, trainer
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab, (2, 32),
+                            generator=torch.Generator().manual_seed(1)).cuda()
+    ops.reset_launches()
+    run = generate(model, params, prompts, 8)
+    serve_launched = dict(ops.launches)
+    if serve_launched != serve_launches(cfg, 8) or run.tokens.shape != (2, 8):
+        raise AssertionError(f"{arch} reduced serving: launches {serve_launched}, "
+                             f"tokens {tuple(run.tokens.shape)}")
+    forced = torch.randint(0, cfg.vocab, (2, FP32_DECODE_STEPS),
+                           generator=torch.Generator().manual_seed(2)).cuda()
+    fp = serve_fp32_check(cfg, params, torch.cat([prompts, forced], 1), 32, 48)
+    summary = {"arch": cfg.name, "optimizer": cfg.optimizer, "losses": losses,
+               "scale_out_ms": ev.wall_s * 1e3, "codec": codec,
+               "encoded_leaves": kinds, "int8_leaves": n_int8,
+               "launches": launches, "serve_launches": serve_launched,
+               "fp32_check": fp}
+    log(f"{arch} reduced ({cfg.optimizer}): 3 steps, losses "
+        f"{[round(x, 4) for x in losses]}, an int8 scale-out in "
+        f"{ev.wall_s * 1e3:.1f} ms, state bit-unchanged ({kinds.get('raw', 0)} "
+        f"leaves raw, {n_int8} of them int8; {kinds['int8']} coded), wire "
+        f"{codec['wire_bytes']} of {codec['payload_bytes']} bytes; served 8 "
+        f"tokens; fp32 check max |diff| {fp['max_abs_diff']:.3e}, faults "
+        + "; ".join(f"{k} {v['max_abs_diff']:.3e}" for k, v in fp["faults"].items()))
+    log(json.dumps({"reduced_dense": summary}))
+    for k, n in serve_launched.items():
+        launches[k] += n
+    return launches
+
+
+#: Dense configs whose fp32 cached decode parts from the cache-free forward
+#: by the order of its fp32 sums alone, an order cuBLAS (its products) and
+#: PyTorch (the norms' means) pick by the number of rows: a decode step's 8
+#: against the cache-free forward's 8 x 1,031. ``tools/tinyllama_fp32_drift.py``
+#: shows it on the card (PERF.md §6): with the cached side's products and
+#: norms run at the cache-free row counts the gap closes.
+FP32_SUMS_BY_ROWS = ("tinyllama-1.1b",)
+
+
 def serve_tol(cfg, dtype):
     """The fixed tolerance of a serving check, tests/test_kernels.py's own:
     ``_tol`` for the dense family (attention); ``_rec_tol`` for the ssm and
     hybrid families, whose decode runs WKV6 or SSD one step per launch
     where the cache-free forward runs every step in one launch, so their
-    fp32 sums come in another order."""
-    return tol(dtype) if cfg.family == "dense" else rec_tol(dtype)
+    fp32 sums come in another order, and for the dense configs of
+    ``FP32_SUMS_BY_ROWS``, whose fp32 sums come in another order at a
+    decode step's row count."""
+    if cfg.family == "dense" and cfg.name not in FP32_SUMS_BY_ROWS:
+        return tol(dtype)
+    return rec_tol(dtype)
 
 
 def serve_launches(cfg, n_tokens):
@@ -1407,7 +1620,10 @@ def serve_launches(cfg, n_tokens):
 
 #: Faults planted in the serving path, per family; each must fail the fp32
 #: check of cached against cache-free logits.
-SERVE_FAULTS = {"dense": ("cache written one slot off",),
+SERVE_FAULTS = {"dense": ("cache written one slot off",
+                          "the local layer loses its window",
+                          "the global layer keeps the window",
+                          "the attention softcap dropped"),
                 "ssm": ("x_last not carried", "state not carried"),
                 "hybrid": ("conv state not carried", "SSM state not carried",
                            "applications sharing one KV cache",
@@ -1415,14 +1631,45 @@ SERVE_FAULTS = {"dense": ("cache written one slot off",),
                            "RoPE positions from 0 at decode")}
 
 
+#: How far the attention softcap must move a score 4 standard deviations
+#: out for its planted fault to be one the fp32 check can see.
+SOFTCAP_VISIBLE = 1e-3
+
+
+def softcap_shift(cfg):
+    """What the attention softcap ``c`` takes off a score 4 standard
+    deviations out, ``s - c·tanh(s/c)`` (about s³/3c²), at a random init:
+    q and k entries about unit normal after the norm and the 1/sqrt(d)
+    projections, so the scores spread as ``scale·sqrt(hd)``. Full gemma2:
+    4 x 0.707, 3.0e-3; reduced (hd 16): 4 x 0.25, 1.3e-4."""
+    c = cfg.attn_softcap
+    scale = cfg.query_scale or cfg.head_dim ** -0.5
+    s = 4.0 * scale * math.sqrt(cfg.head_dim)
+    return s - c * math.tanh(s / c) if c else 0.0
+
+
 def serve_faults(cfg):
     """The family's ``SERVE_FAULTS`` that can show on ``cfg``: a config
-    that applies its shared block once has no second KV cache to share."""
+    that applies its shared block once has no second KV cache to share;
+    only a config that alternates local and global layers (gemma2) has a
+    window to lose or keep; only one with an attention softcap has one to
+    drop, and only where random-init scores reach its curve
+    (``softcap_shift`` above ``SOFTCAP_VISIBLE``): on the reduced gemma2
+    the fault moves 0 to 3 of its 2,560 checked logits past fp32 ``_tol``,
+    seed by seed."""
     from repro_torch.models import zamba2
 
-    return tuple(f for f in SERVE_FAULTS[cfg.family]
-                 if f != "applications sharing one KV cache"
-                 or zamba2.n_shared_apps(cfg) > 1)
+    def shows(fault):
+        if fault == "applications sharing one KV cache":
+            return zamba2.n_shared_apps(cfg) > 1
+        if fault in ("the local layer loses its window",
+                     "the global layer keeps the window"):
+            return cfg.alt_local_global and cfg.sliding_window > 0
+        if fault == "the attention softcap dropped":
+            return softcap_shift(cfg) > SOFTCAP_VISIBLE
+        return True
+
+    return tuple(f for f in SERVE_FAULTS[cfg.family] if shows(f))
 
 
 @contextlib.contextmanager
@@ -1434,10 +1681,15 @@ def planted_fault(fault):
     state; the causal conv ignoring its carried context (zeros in its
     place); every application of Zamba2's shared block reading and writing
     the first application's KV cache; RoPE rotating each call's rows from
-    position 0 (a prefill from 0 is unchanged, a decode step is not)."""
+    position 0 (a prefill from 0 is unchanged, a decode step is not); on
+    the cache path (the prefill into the cache and each decode step), the
+    local (even) layers attending without their window, or the global
+    (odd) ones with it, or the attention without its softcap."""
+    import dataclasses
+
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
-    from repro_torch.models import mamba2, rwkv6, zamba2
+    from repro_torch.models import mamba2, rwkv6, transformer, zamba2
 
     if fault is None:
         yield
@@ -1487,6 +1739,25 @@ def planted_fault(fault):
 
         def faulty(x, positions, theta):
             return orig(x, positions - positions[..., :1], theta)
+    elif fault in ("the local layer loses its window",
+                   "the global layer keeps the window"):
+        module, name = transformer, "_layer_body"
+        orig = transformer._layer_body
+        keep = fault == "the global layer keeps the window"
+
+        def faulty(cfg, x, lp, spec, is_local, positions, cache_kv=None,
+                   cache_pos=None):
+            if cache_kv is not None and is_local is not None:
+                is_local = keep
+            return orig(cfg, x, lp, spec, is_local, positions, cache_kv, cache_pos)
+    elif fault == "the attention softcap dropped":
+        module, name = L, "attention_sublayer"
+        orig = L.attention_sublayer
+
+        def faulty(params, x, cfg, spec, *, cache_kv=None, **kw):
+            if cache_kv is not None:
+                cfg = dataclasses.replace(cfg, attn_softcap=0.0)
+            return orig(params, x, cfg, spec, cache_kv=cache_kv, **kw)
     else:
         raise ValueError(f"unknown fault {fault!r}")
     setattr(module, name, faulty)
@@ -1575,12 +1846,12 @@ def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len):
     return out
 
 
-def serve_path(ops, name):
-    """One served family at full width and depth through the serving
+def serve_path(ops, name, cfg, B, P, n_tokens):
+    """One serving run (``serve_runs``) at full width through the serving
     launcher's ``generate`` (``Model.prefill`` and ``Model.decode_step``):
-    a batch of ``SERVE_BATCH`` random prompts of ``SERVE_PROMPT`` tokens,
-    ``SERVE_TOKENS`` greedy new tokens, a cache of ``SERVE_CACHE``
-    positions, bf16 as served; params from the port's init, seeded. Each
+    a batch of ``B`` random prompts of ``P`` tokens, ``n_tokens`` greedy
+    new tokens, a cache of ``P + n_tokens`` positions, bf16 as served;
+    params from the port's init, seeded. Each
     decode step is closed by a sync and timed (``generate(stream=True)``).
     The launch counters are zeroed just before the run and read just after
     it, and held to the exact count (``serve_launches``: each layer's
@@ -1608,17 +1879,14 @@ def serve_path(ops, name):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import tree as T
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
     from repro_torch.models.model_api import _family_forward
 
-    cfg = get_config(name)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(p.numel() for p in T.leaves(params))
-    B, P = SERVE_BATCH, SERVE_PROMPT
     host = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (B, P), generator=host).cuda()
     forced = torch.randint(0, cfg.vocab, (B, FP32_DECODE_STEPS), generator=host).cuda()
@@ -1632,27 +1900,27 @@ def serve_path(ops, name):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    run = generate(model, params, prompts, SERVE_TOKENS, stream=True,
+    run = generate(model, params, prompts, n_tokens, stream=True,
                    keep_logits=True)
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
-    expected = serve_launches(cfg, SERVE_TOKENS)
+    expected = serve_launches(cfg, n_tokens)
     if launches != expected:
         raise AssertionError(f"serving {name}: launches {launches}, expected {expected}")
-    served = torch.stack(run.logits, dim=1)  # (B, SERVE_TOKENS, V) bf16
-    if (served.shape != (B, SERVE_TOKENS, cfg.vocab)
-            or run.tokens.shape != (B, SERVE_TOKENS)
+    served = torch.stack(run.logits, dim=1)  # (B, n_tokens, V) bf16
+    if (served.shape != (B, n_tokens, cfg.vocab)
+            or run.tokens.shape != (B, n_tokens)
             or not bool(torch.isfinite(served).all())
             or not bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all())):
         raise AssertionError(f"serving {name}: logits {tuple(served.shape)}, "
                              f"tokens {tuple(run.tokens.shape)}, finite "
                              f"{bool(torch.isfinite(served).all())}")
-    window = generate(model, params, prompts, SERVE_TOKENS).decode_ms
+    window = generate(model, params, prompts, n_tokens).decode_ms
     steps = np.array(run.step_ms)
     summary = {
         "model": name, "n_params": n_params, "batch": B, "prompt": P,
-        "new_tokens": SERVE_TOKENS, "cache_len": SERVE_CACHE,
+        "new_tokens": n_tokens, "cache_len": P + n_tokens,
         "prefill_ms": run.prefill_ms,
         "decode_ms_median": float(np.median(steps)),
         "decode_ms_p90": float(np.percentile(steps, 90)),
@@ -1701,11 +1969,11 @@ def serve_path(ops, name):
     # fp32 cached against cache-free, with the planted faults.
     t0 = time.perf_counter()
     summary["fp32_check"] = serve_fp32_check(
-        cfg, params, torch.cat([prompts, forced], dim=1), P, SERVE_CACHE)
+        cfg, params, torch.cat([prompts, forced], dim=1), P, P + n_tokens)
     summary["fp32_check"]["s"] = time.perf_counter() - t0
 
     # One profiled decode step, from a fresh prefill and one warm step.
-    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=SERVE_CACHE)
+    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=P + n_tokens)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     logits, cache = model.decode_step(params, {"tokens": tok, "pos": P, "cache": cache})
     tok = torch.argmax(logits[:, -1:], dim=-1)
@@ -1730,7 +1998,7 @@ def serve_path(ops, name):
 
     fp = summary["fp32_check"]
     log(f"serving {name} ({n_params} params) at batch {B}, prompt {P}, "
-        f"{SERVE_TOKENS} new tokens: prefill {run.prefill_ms:.1f} ms; decode "
+        f"{n_tokens} new tokens: prefill {run.prefill_ms:.1f} ms; decode "
         f"median {summary['decode_ms_median']:.2f} ms/token (p90 "
         f"{summary['decode_ms_p90']:.2f}); {summary['decode_tokens_per_s']:.0f} "
         f"tokens/s over {len(steps)} steps, each closed by a sync; the same "
@@ -1860,6 +2128,8 @@ def _kernel_group(key):
         return "ssd kernel (forward and remat recompute)"
     if "gemm" in k and "bf16" in k:
         return "bf16 GEMMs (projections, MLP, unembedding)"
+    if "nvjet" in k:  # cuBLAS's Hopper GEMMs, which name no dtype
+        return "cuBLAS nvjet GEMMs (the bf16 projections, MLP, unembedding)"
     if "gemm" in k:
         return "fp32 GEMMs (plain backwards, fp32 projections)"
     if "softmax" in k:
@@ -2082,34 +2352,45 @@ def _per_launch(fn, sets, reps=5):
     return device, cuda_ms(one_pass, reps, 1) / len(sets)
 
 
-def time_decode_attention(fa, MaskSpec, gen, name):
-    """The bf16 kernel at the serving run of ``name``'s decode shape, one
-    query row over the whole cache at the middle of the decode's positions,
-    on one cache per layer or (Zamba2) per application of the shared block;
-    beside it the plain version and ``scaled_dot_product_attention`` with
-    the same mask (checked against the plain version at ``_tol``). The bound
-    counts the cache rows the mask admits."""
-    from repro_torch.configs import get_config
+def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
+                          window=0, n_sets=None):
+    """The bf16 kernel at a serving run's decode shape (batch ``B``, a cache
+    of ``P + n_tokens``), one query row over the whole cache at the middle
+    of the decode's positions, with the config's scale and softcap and the
+    layer's ``window``, on one cache per layer (``n_sets``; default the
+    config's layers, or Zamba2's applications of its shared block); beside
+    it the plain version and ``scaled_dot_product_attention`` with the same
+    mask (checked against the plain version at ``_tol``), which has no
+    softcap (None for a config with one). The bound counts the cache rows
+    the mask admits."""
     from repro_torch.models import zamba2
 
-    cfg = get_config(name)
-    B, H, K, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    n_sets = zamba2.n_shared_apps(cfg) if cfg.family == "hybrid" else cfg.n_layers
-    q_offset = SERVE_PROMPT + SERVE_TOKENS // 2
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if n_sets is None:
+        n_sets = zamba2.n_shared_apps(cfg) if cfg.family == "hybrid" else cfg.n_layers
+    cache_len = P + n_tokens
+    q_offset = P + n_tokens // 2
     bf16 = torch.bfloat16
     sets = [(torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(bf16),
-             torch.randn((B, SERVE_CACHE, K, hd), generator=gen, device="cuda").to(bf16),
-             torch.randn((B, SERVE_CACHE, K, hd), generator=gen, device="cuda").to(bf16))
+             torch.randn((B, cache_len, K, hd), generator=gen, device="cuda").to(bf16),
+             torch.randn((B, cache_len, K, hd), generator=gen, device="cuda").to(bf16))
             for _ in range(n_sets)]
-    scale = hd ** -0.5
-    spec = MaskSpec("causal")
-    mask = (torch.arange(SERVE_CACHE, device="cuda") <= q_offset)[None, None, None, :]
+    scale = cfg.query_scale or hd ** -0.5
+    softcap = cfg.attn_softcap
+    spec = MaskSpec("causal", window=window)
+    rows = torch.arange(cache_len, device="cuda")
+    admitted = rows <= q_offset
+    if window:
+        admitted &= q_offset - rows < window
+    mask = admitted[None, None, None, :]
 
     def kernel(q, k, v):
-        return fa.flash_attention_kernel(q, k, v, scale=scale, q_offset=q_offset)
+        return fa.flash_attention_kernel(q, k, v, scale=scale, softcap=softcap,
+                                         window=window, q_offset=q_offset)
 
     def plain(q, k, v):
-        return fa.attention_plain(q, k, v, spec, scale=scale, q_offset=q_offset)
+        return fa.attention_plain(q, k, v, spec, scale=scale, softcap=softcap,
+                                  q_offset=q_offset)
 
     gqa = {"enable_gqa": True} if H != K else {}
 
@@ -2119,16 +2400,22 @@ def time_decode_attention(fa, MaskSpec, gen, name):
             attn_mask=mask, scale=scale, **gqa).transpose(1, 2)
 
     q, k, v = sets[0]
-    torch.testing.assert_close(library(q, k, v).float(), plain(q, k, v).float(),
+    torch.testing.assert_close(kernel(q, k, v).float(), plain(q, k, v).float(),
                                **tol(bf16))
-    ms, window = _per_launch(kernel, sets)
+    ms, window_ms = _per_launch(kernel, sets)
     plain_ms, plain_window = _per_launch(plain, sets, reps=1)
-    library_ms, library_window = _per_launch(library, sets)
-    n_kv = q_offset + 1
+    library_ms = library_window = None
+    if not softcap:
+        torch.testing.assert_close(library(q, k, v).float(), plain(q, k, v).float(),
+                                   **tol(bf16))
+        library_ms, library_window = _per_launch(library, sets)
+    n_kv = int(admitted.sum())
     nbytes = 2 * (B * H * hd + 2 * B * n_kv * K * hd + B * H * hd)
     flops = 4 * B * H * hd * n_kv
-    return dict(model=name, shape=[B, 1, SERVE_CACHE, H, K, hd], q_offset=q_offset,
-                ms=ms, window_ms=window, plain_ms=plain_ms,
+    del sets
+    return dict(model=name, shape=[B, 1, cache_len, H, K, hd], q_offset=q_offset,
+                window=window, softcap=softcap, scale=scale, admitted_rows=n_kv,
+                ms=ms, window_ms=window_ms, plain_ms=plain_ms,
                 plain_window_ms=plain_window, library_ms=library_ms,
                 library_window_ms=library_window,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
@@ -2503,8 +2790,8 @@ def simulator_phase(ops, gpt2_leaf_bytes, codec_times):
     from repro_torch.core import baselines, codec, plans, topology
     from repro_torch import core
 
-    for name in ("networkx", "jax", "repro"):
-        if name in sys.modules:
+    for name in BLOCKED:
+        if sys.modules.get(name) is not None:  # None: blocked, not imported
             raise AssertionError(f"the simulator phase imported {name}")
     before = dict(ops.launches)
     t0 = time.perf_counter()
@@ -2809,15 +3096,14 @@ def churn_phase(ops):
     virtual seconds, not card time. Launches no kernel."""
     import statistics
 
-    blocked = ("networkx", "jax", "repro")
-    for name in blocked:
+    for name in BLOCKED:
         if sys.modules.get(name) is not None:  # None: blocked, not imported
             raise AssertionError(f"the churn phase imported {name}")
     before = dict(ops.launches)
     t0 = time.perf_counter()
     # The sweep runs with the three unimportable: an import of any raises.
-    absent = [name for name in blocked if name not in sys.modules]
-    sys.modules.update(dict.fromkeys(blocked))
+    absent = [name for name in BLOCKED if name not in sys.modules]
+    sys.modules.update(dict.fromkeys(BLOCKED))
     try:
         sim = churn_modules("repro_torch")
         keep = {}
@@ -2921,7 +3207,14 @@ def main():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
               file=sys.stderr)
         return 1
+    # The port runs without JAX, the JAX package and networkx: all three are
+    # made unimportable for the whole run (an import of any raises).
+    for name in BLOCKED:
+        if sys.modules.get(name) is not None:
+            raise AssertionError(f"chip_smoke imported {name} before its run")
+    sys.modules.update(dict.fromkeys(BLOCKED))
     from repro_torch import tree as T
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -2952,6 +3245,7 @@ def main():
     errs["flash_attention"] = check_attention(fa, gen)
     errs["wkv6"] = check_wkv6(W, gen)
     errs["ssd"] = check_ssd(SD, gen)
+    check_q8(gen)
 
     # Phase 3: the main paths, one family at a time. GPT-2's state is the
     # codec's timing input (phase 5), timed while it is on the card.
@@ -2995,12 +3289,19 @@ def main():
     torch.cuda.empty_cache()
     # Phase 3d: serving, its launches counted like a path's.
     t0 = time.perf_counter()
-    for name in SERVE_PATHS:
-        for k, n in serve_path(ops, name).items():
+    for label, cfg, B, P, n_tokens in serve_runs():
+        for k, n in serve_path(ops, label, cfg, B, P, n_tokens).items():
             launches[k] += n
     log(f"serving phase: {time.perf_counter() - t0:.1f} s")
-    log(f"launches over the three paths, the self-healing replay, the "
-        f"launcher and the serving runs: {json.dumps(launches)}")
+    # Phase 3e: the dense configs that fit no card, reduced.
+    for arch in REDUCED_DENSE:
+        for k, n in reduced_dense(ops, arch).items():
+            launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"launches over the {len(PATHS)} paths, the self-healing replay, the "
+        f"launcher, the serving runs and the reduced dense runs: "
+        f"{json.dumps(launches)}")
 
     # Phase 4: small-input references.
     for name in PATHS:
@@ -3014,13 +3315,25 @@ def main():
     if old is not None:
         for name, t in time_baseline(old, gen, shapes).items():
             times[name]["baseline_ms"] = t["baseline_ms"]
-    for name, t in (
-            ("flash_attention", time_decode_attention(fa, MaskSpec, gen, "gpt2")),
-            ("flash_attention", time_decode_attention(fa, MaskSpec, gen, "zamba2-1.2b")),
-            ("wkv6", time_decode_wkv6(W, gen)), ("ssd", time_decode_ssd(SD, gen))):
+    decode = []
+    for label, cfg, B, P, n in serve_runs():
+        if cfg.family == "ssm":
+            continue
+        for kind, window in layer_kinds(cfg):
+            # gemma2's cut: one cache per layer of that kind in the full config.
+            n_sets = (get_config(cfg.name).n_layers // 2 if cfg.alt_local_global
+                      else None)
+            decode.append(("flash_attention", time_decode_attention,
+                           (fa, MaskSpec, gen, label + kind, cfg, B, P, n, window,
+                            n_sets)))
+    decode += [("wkv6", time_decode_wkv6, (W, gen)),
+               ("ssd", time_decode_ssd, (SD, gen))]
+    for name, timer, args in decode:
+        t = timer(*args)
         bound_ms, bound_by = t.pop("bound")
         log(json.dumps({"kernel_decode": name, **t, "bound_ms": bound_ms,
                         "bound_by": bound_by}))
+        torch.cuda.empty_cache()
 
     # Phase 6: the simulator substrate, beside the codec's device times.
     simulator = simulator_phase(ops, gpt2_leaf_bytes,
@@ -3056,6 +3369,7 @@ def main():
                         **{key: t[key] for key in (
                             "device_ms", "baseline_device_ms") if key in t},
                         "launches": launches[name]}))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"simulator": simulator}))
     print(json.dumps({"churn": churn}))
     print(json.dumps({"kernels": kernels}))

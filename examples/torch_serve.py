@@ -1,18 +1,19 @@
 """Serving demo on the PyTorch port: batched prefill + greedy decode with
-a KV cache (GPT-2), a recurrent state (RWKV-6) or both (Zamba2: a KV cache
-per application of its shared attention block beside the Mamba2 blocks'
-conv and SSM states), the twin of ``examples/serve.py``.
+a KV cache (the dense family: TinyLlama, GPT-2, granite, llama3, gemma2),
+a recurrent state (RWKV-6) or both (Zamba2: a KV cache per application of
+its shared attention block beside the Mamba2 blocks' conv and SSM states),
+the twin of ``examples/serve.py``.
 
 Serves the reduced config: prefill a batch of prompts into a cache sized
 for the whole generation, then decode tokens autoregressively through
 ``Model.prefill`` and ``Model.decode_step``.
 
-    PYTHONPATH=src python examples/torch_serve.py [--arch gpt2] [--tokens 16] [--device cpu]
+    PYTHONPATH=src python examples/torch_serve.py [--arch tinyllama-1.1b] [--tokens 16] [--device cpu]
 
-The default arch is ``gpt2``: the JAX demo's ``tinyllama-1.1b`` is not
-ported; ``--arch`` takes ``rwkv6-1.6b`` and ``zamba2-1.2b`` too. Runs on
-CUDA unless ``--device`` names another device (``cpu`` runs the kernels'
-plain versions).
+The default arch is ``tinyllama-1.1b``, as in the JAX demo; ``--arch``
+takes ``gpt2``, ``granite-34b``, ``llama3-405b``, ``gemma2-27b``,
+``rwkv6-1.6b`` and ``zamba2-1.2b`` too. Runs on CUDA unless ``--device``
+names another device (``cpu`` runs the kernels' plain versions).
 """
 import argparse
 import sys
@@ -27,7 +28,7 @@ from repro_torch.models.model_api import SERVED
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="gpt2")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)

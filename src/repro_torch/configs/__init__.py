@@ -1,6 +1,7 @@
-"""Architecture configs of the port: the families it trains — GPT-2
-(dense), RWKV-6 (ssm) and Zamba2 (hybrid). The other configs of
-``repro.configs`` come with their model code."""
+"""Architecture configs of the port: the families it trains — the dense
+family (GPT-2, TinyLlama, granite-34b, llama3-405b, gemma2-27b), RWKV-6
+(ssm) and Zamba2 (hybrid). The other configs of ``repro.configs``
+(whisper, paligemma, the MoE models) come with their model code."""
 from repro_torch.configs.base import (
     SHAPE_CELLS,
     SHAPES,
@@ -12,7 +13,15 @@ from repro_torch.configs.base import (
 )
 
 # Import per-arch modules for registry side effects.
-from repro_torch.configs import gpt2, rwkv6_1_6b, zamba2_1_2b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    gemma2_27b,
+    gpt2,
+    granite_34b,
+    llama3_405b,
+    rwkv6_1_6b,
+    tinyllama_1_1b,
+    zamba2_1_2b,
+)
 
 __all__ = [
     "ArchConfig",

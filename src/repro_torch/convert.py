@@ -6,6 +6,7 @@ initialise with JAX, take ``jax.tree.map(np.asarray, state)`` and hand the
 numpy tree to :func:`state_from_numpy`. Paths, shapes, dtypes and bytes are
 kept, so replication manifests stay equal on both sides.
 
+int8 leaves (adamw8bit's moment codes) and fp32 ones cross as they are;
 bf16 leaves (a KV cache, RWKV-6's ``tm_x``/``cm_x``) cross bit for bit
 through a 16-bit integer view: ``torch.from_numpy`` rejects numpy's
 ``ml_dtypes.bfloat16`` and ``Tensor.numpy`` rejects ``torch.bfloat16``.

@@ -1,19 +1,21 @@
 """Serving launcher of the port, from ``repro/launch/serve.py``: batched
-prefill + greedy autoregressive decode with a KV cache (dense), a
-recurrent state (ssm) or both (hybrid: one KV cache per application of the
-shared attention block, and each Mamba2 block's conv and SSM states),
-request after request, with per-phase timing.
+prefill + greedy autoregressive decode with a KV cache (dense: GPT-2,
+TinyLlama, granite, llama3, gemma2), a recurrent state (ssm) or both
+(hybrid: one KV cache per application of the shared attention block, and
+each Mamba2 block's conv and SSM states), request after request, with
+per-phase timing.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2 \
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch tinyllama-1.1b] \
         [--requests 3] [--batch 4] [--prompt-len 32] [--tokens 16] [--device cpu]
 
 Serves the reduced config, as the JAX launcher does. The JAX launcher's
-flags keep their defaults and meanings, except ``--arch``: its default,
-``tinyllama-1.1b`` (GQA and RoPE), is not ported, so the port's default is
-``gpt2``. ``--temperature`` is accepted and, as there, unused: decoding is
-greedy. ``--device`` is the port's own: CUDA unless given, and asking for
-CUDA where there is none raises (``repro_torch.device.resolve_device``).
-An arch whose family is not served yet exits non-zero with a message.
+flags keep their defaults and meanings, ``--arch`` defaulting to
+``tinyllama-1.1b`` as there. ``--temperature`` is accepted and, as there,
+unused: decoding is greedy. ``--device`` is the port's own: CUDA unless
+given, and asking for CUDA where there is none raises
+(``repro_torch.device.resolve_device``). An arch the port does not have
+yet (whisper-small, paligemma-3b, the MoE models) exits non-zero with a
+message.
 """
 from __future__ import annotations
 
@@ -90,7 +92,7 @@ def generate(model, params, prompts, n_tokens: int, *, stream: bool = False,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="gpt2")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -20,7 +20,10 @@ JAX launcher's dry run, is not ported and exits non-zero.
 
 Scale knobs live in the configs (``repro_torch/configs/<arch>.py``); the
 default ``--reduced`` uses the same ``reduced()`` family transform as the
-tests, so the launcher runs anywhere.
+tests, so the launcher runs anywhere. ``--arch`` takes every config of
+``repro_torch.configs`` (the dense family, RWKV-6, Zamba2); one the port
+does not have yet (whisper-small, paligemma-3b, the MoE models) exits
+non-zero with a message.
 """
 from __future__ import annotations
 
@@ -150,7 +153,11 @@ def main(argv=None):
               file=sys.stderr)
         return 2
 
-    cfg = get_config(args.arch)
+    try:
+        cfg = get_config(args.arch)
+    except KeyError as e:
+        print(f"train: {e.args[0]}", file=sys.stderr)
+        return 2
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), learning_rate=args.lr)
         cell = ShapeCell("launch", args.seq, args.batch, "train")

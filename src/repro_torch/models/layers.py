@@ -3,13 +3,13 @@
 Plain functions over nested param dicts, in the JAX module's order: norms
 (layernorm, Gemma-style rmsnorm), RoPE, the blockwise mask, attention
 (which always runs the flash-attention kernel through ``kernels.ops``), the
-gelu2 MLP, embeddings and the cross-entropy.
+gelu2, swiglu and geglu MLPs, embeddings and the cross-entropy.
 Params stay fp32 and are cast to the activation dtype at use, as in JAX.
 Initialisers take an explicit ``torch.Generator`` and device; they cannot
 reproduce ``jax.random`` draws, so tests convert JAX-initialised states
 instead (``repro_torch.convert``).
 
-Not ported yet: cross-attention (``static_kv``) and the swiglu/geglu MLPs.
+Not ported yet: cross-attention (``static_kv``).
 """
 from __future__ import annotations
 
@@ -199,19 +199,36 @@ def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
 # ---------------------------------------------------------------------------
 
 
+_MLPS = ("gelu2", "swiglu", "geglu")
+
+
 def init_mlp(gen, d, ff, kind, device):
-    if kind != "gelu2":
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet")
+    """gelu2: ``w1`` (d, ff), ``w2`` (ff, d); the gated kinds add ``w3``
+    (d, ff), scaled as ``w1``."""
+    if kind not in _MLPS:
+        raise ValueError(f"unknown mlp {kind!r}")
     s1, s2 = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
-    return {"w1": _normal(gen, (d, ff), device) * s1,
-            "w2": _normal(gen, (ff, d), device) * s2}
+    p = {"w1": _normal(gen, (d, ff), device) * s1,
+         "w2": _normal(gen, (ff, d), device) * s2}
+    if kind != "gelu2":
+        p["w3"] = _normal(gen, (d, ff), device) * s1
+    return p
 
 
 def mlp_sublayer(params, x, kind):
-    if kind != "gelu2":
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet")
+    """gelu2: ``gelu_tanh(x@w1) @ w2``; swiglu: ``(silu(x@w1) * (x@w3)) @
+    w2``; geglu: ``(gelu_tanh(x@w1) * (x@w3)) @ w2``; all in the
+    activations' dtype."""
     dt = x.dtype
-    h = F.gelu(x @ params["w1"].to(dt), approximate="tanh")
+    h = x @ params["w1"].to(dt)
+    if kind == "swiglu":
+        h = F.silu(h) * (x @ params["w3"].to(dt))
+    elif kind == "geglu":
+        h = F.gelu(h, approximate="tanh") * (x @ params["w3"].to(dt))
+    elif kind == "gelu2":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp {kind!r}")
     return h @ params["w2"].to(dt)
 
 

@@ -1,12 +1,16 @@
 """Model API of the port, from ``repro/models/model_api.py``: the dense
-(GPT-2), ssm (RWKV-6) and hybrid (Zamba2) families.
+(GPT-2, TinyLlama, granite, llama3, gemma2), ssm (RWKV-6) and hybrid
+(Zamba2) families.
 
 ``build_model(cfg, device)`` returns a :class:`Model` exposing:
   * ``init(generator)`` → params
   * ``init_train_state(generator)`` → ``{"params", "opt"}``
+  * ``param_specs()`` / ``train_state_specs()`` — the same trees on the
+    meta device (shapes and dtypes, no memory), as ``jax.eval_shape``
+    gives them in JAX
   * ``loss_fn(params, batch)`` → (loss, metrics)
   * ``make_train_step()`` → ``train_step(state, batch) -> (state, metrics)``
-    (AdamW + global-norm clipping)
+    (the config's optimizer + global-norm clipping)
   * ``prefill(params, batch)`` → (logits, cache)
   * ``decode_step(params, batch)`` → (logits, cache)
   * ``input_specs(cell)`` / ``cache_specs(batch, max_len)`` — meta-device
@@ -67,6 +71,19 @@ class Model:
         params = self.init(generator)
         opt = make_optimizer(self.cfg)
         return {"params": params, "opt": opt.init(params)}
+
+    def param_specs(self):
+        """The params' shapes and dtypes as meta-device tensors, whatever
+        the model's device: nothing is allocated, so full-size configs
+        that fit no card can be checked."""
+        return dataclasses.replace(self, device=torch.device("meta")).init(
+            torch.Generator())
+
+    def train_state_specs(self):
+        """The training state's (params and optimizer state) shapes and
+        dtypes as meta-device tensors; nothing is allocated."""
+        return dataclasses.replace(self, device=torch.device("meta")).init_train_state(
+            torch.Generator())
 
     def loss_fn(self, params, batch):
         cfg = self.cfg

@@ -9,8 +9,13 @@ a Python loop over its unbound slices; ``jax.checkpoint`` becomes
 Activations run in bf16. The serving path writes the KV cache in place,
 one layer's slice at a time, and never remats.
 
-Not ported yet: MoE layers, gemma2's local/global alternation and the
-prefix-LM wrapper (``patch_embeds``, the cache's ``prefix`` rows).
+Gemma2's local/global alternation is a per-layer Python ``bool``
+(``_is_local_flags``): even layers local (the window applies), odd layers
+global. Where the JAX package scans a traced flag, which keeps gemma2 off
+its Pallas path, every layer here reaches the attention kernel.
+
+Not ported yet: MoE layers and the prefix-LM wrapper (``patch_embeds``,
+the cache's ``prefix`` rows).
 """
 from __future__ import annotations
 
@@ -47,6 +52,17 @@ def init_transformer(cfg, gen: torch.Generator, device):
     }
 
 
+def _is_local_flags(cfg):
+    """Each layer's ``is_local`` for ``attention_sublayer``: None without a
+    window; True for a uniform window; with ``alt_local_global``, True on
+    even layers (local) and False on odd ones (global), gemma2's order."""
+    if cfg.sliding_window == 0:
+        return [None] * cfg.n_layers
+    if cfg.alt_local_global:
+        return [i % 2 == 0 for i in range(cfg.n_layers)]
+    return [True] * cfg.n_layers
+
+
 def _layer_body(cfg, x, lp, spec, is_local, positions, cache_kv=None,
                 cache_pos=None):
     h = L.apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
@@ -75,8 +91,6 @@ def forward(cfg, params, tokens, *, patch_embeds=None, cache=None,
     Decode: tokens (B, 1), ``cache_pos`` the write position → the same.
     The cache is written in place and returned as the same dict.
     ``last_only`` keeps the last position's logits only."""
-    if cfg.alt_local_global:
-        raise NotImplementedError("local/global alternation is not ported yet")
     if patch_embeds is not None:
         raise NotImplementedError("the prefix-LM (vlm) path is not ported yet")
     if cache is not None and cache_pos is None:
@@ -87,9 +101,8 @@ def forward(cfg, params, tokens, *, patch_embeds=None, cache=None,
     x = L.embed_tokens(params["embed"], tokens, cfg, positions=positions,
                        dtype=dtype)
     spec = MaskSpec(kind="causal", window=cfg.sliding_window, prefix_len=0)
-    # A uniform window applies to every layer; none leaves is_local unset.
-    is_local = True if cfg.sliding_window > 0 else None
-    for i, lp in enumerate(T.unstack(params["layers"], cfg.n_layers)):
+    layers = T.unstack(params["layers"], cfg.n_layers)
+    for i, (lp, is_local) in enumerate(zip(layers, _is_local_flags(cfg))):
         if cache is not None:
             x = _layer_body(cfg, x, lp, spec, is_local, positions,
                             (cache["k"][i], cache["v"][i]), offset)

@@ -1,15 +1,14 @@
-"""AdamW with fp32 moments, global-norm clipping and ``make_optimizer``,
-from ``repro/optim/adamw.py``.
+"""The optimisers of ``repro/optim/adamw.py``: AdamW with fp32 moments,
+AdamW with int8 block-quantized moments (``adamw8bit``), SGD with momentum
+(``sgdm``), global-norm clipping and ``make_optimizer``.
 
 The API mirrors the JAX package's (and optax's): ``init(params) -> state``,
 ``update(grads, state, params) -> (updates, state)``; updates are
 *subtracted* from params by the caller. One departure: ``update`` advances
-the moments ``m`` and ``v`` and the ``step`` counter **in place** and
-returns the same state dict, where JAX builds new arrays. That saves two
-copies of the fp32 moments per step; callers that need the old moments
-clone them first.
-
-``adamw8bit`` and ``sgdm`` are not ported yet.
+the optimizer state (the moments ``m`` and ``v``, adamw8bit's codes and
+scales, sgdm's ``mu``) and the ``step`` counter **in place** and returns
+the same state dict, where JAX builds new arrays. That saves copies of the
+moments per step; callers that need the old state clone it first.
 """
 from __future__ import annotations
 
@@ -58,10 +57,127 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
     return Optimizer(init, update)
 
 
+# ---------------------------------------------------------------------------
+# AdamW with int8 block-quantized moments.
+# ---------------------------------------------------------------------------
+
+Q_BLOCK = 256  # elements per quantization block
+
+
+def _block_of(last_dim: int) -> int:
+    """Largest power-of-two divisor of last_dim, capped at Q_BLOCK."""
+    b = 1
+    while b < Q_BLOCK and last_dim % (b * 2) == 0:
+        b *= 2
+    return b
+
+
+def _q8(x):
+    """Block-quantize along the LAST dim: codes (*lead, last // b, b) int8
+    keep the leading dims of the parameter, scales (*lead, last // b) fp32.
+    ``scale = max(max|x| / 127, 1e-12)`` (a true division, where the
+    replication codec multiplies by the fp32 constant 1/127) and ``codes =
+    clip(round_half_even(x / scale), ±127)``, as in JAX."""
+    shape = tuple(x.shape)
+    last = shape[-1] if shape else 1
+    b = _block_of(max(last, 1))
+    xf = x.reshape(*shape[:-1], max(last, 1) // b, b) if shape else x.reshape(1, 1)
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    # A tensor divisor: PyTorch's CUDA kernels turn a division by a Python
+    # scalar into a multiply by its reciprocal, an ulp off on some scales.
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
+    codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return codes, scale[..., 0]
+
+
+def _dq8_static(codes, scale, shape):
+    xf = codes.to(torch.float32) * scale[..., None]
+    return xf.reshape(shape) if shape else xf.reshape(())
+
+
+def adamw8bit(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
+    """AdamW whose m/v live as int8 codes + per-block fp32 scales (≈ 2.03
+    bytes/param of optimizer state vs 8 for fp32 AdamW). ``update``
+    dequantizes each moment, advances it in fp32 and writes the new codes
+    and scales into the state's tensors."""
+
+    def init(params):
+        def mk(p):
+            codes, scale = _q8(torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device))
+            return {"codes": codes, "scale": scale}
+
+        step = torch.zeros((), dtype=torch.int32,
+                           device=T.leaves(params)[0].device)
+        return {"m": T.tree_map(mk, params), "v": T.tree_map(mk, params),
+                "step": step}
+
+    @torch.no_grad()
+    def update(grads, state, params, lr_scale=1.0):
+        state["step"].add_(1)
+        stepf = state["step"].to(torch.float32)
+        sf = torch.tensor(lr_scale, dtype=torch.float32, device=stepf.device)
+        bc1 = 1.0 - torch.pow(b1, stepf)
+        bc2 = 1.0 - torch.pow(b2, stepf)
+        lr_t = lr * sf
+
+        # Walked by the params' structure: each leaf meets its gradient and
+        # its two {"codes", "scale"} dicts.
+        def upd(p, g, mq, vq):
+            g = g.to(torch.float32)
+            m = _dq8_static(mq["codes"], mq["scale"], p.shape)
+            v = _dq8_static(vq["codes"], vq["scale"], p.shape)
+            m2 = b1 * m + (1 - b1) * g
+            v2 = b2 * v + (1 - b2) * torch.square(g)
+            u = (m2 / bc1) / (torch.sqrt(torch.clamp(v2 / bc2, min=0.0)) + eps)
+            u = u + weight_decay * p.to(torch.float32)
+            for q, x in ((mq, m2), (vq, v2)):
+                codes, scale = _q8(x)
+                q["codes"].copy_(codes)
+                q["scale"].copy_(scale)
+            return (lr_t * u).to(p.dtype)
+
+        return T.tree_map(upd, params, grads, state["m"], state["v"]), state
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# SGD + momentum.
+# ---------------------------------------------------------------------------
+
+
+def sgdm(lr=0.1, momentum=0.9, weight_decay=0.0):
+    def init(params):
+        mu = T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+        step = torch.zeros((), dtype=torch.int32,
+                           device=T.leaves(params)[0].device)
+        return {"mu": mu, "step": step}
+
+    @torch.no_grad()
+    def update(grads, state, params, lr_scale=1.0):
+        sf = torch.tensor(lr_scale, dtype=torch.float32,
+                          device=state["step"].device)
+        lr_t = lr * sf
+
+        def upd(g, mu, p):
+            g = g.to(torch.float32) + weight_decay * p.to(torch.float32)
+            mu.mul_(momentum).add_(g)  # mu <- momentum*mu + g, in place
+            return (lr_t * mu).to(p.dtype)
+
+        updates = T.tree_map(upd, grads, state["mu"], params)
+        state["step"].add_(1)
+        return updates, state
+
+    return Optimizer(init, update)
+
+
 def make_optimizer(cfg):
-    if cfg.optimizer in ("adamw8bit", "sgdm"):
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet; only adamw is")
+    if cfg.optimizer == "adamw8bit":
+        return adamw8bit(lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "sgdm":
+        return sgdm(lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
     return adamw(lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
 
 

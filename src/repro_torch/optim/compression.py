@@ -1,6 +1,7 @@
-"""Per-block int8 quantization of replication payloads, from
-``repro/optim/compression.py`` (``Q_BLOCK``, ``int8_quantize``,
-``int8_dequantize``, ``compressed_bytes``).
+"""Gradient and payload compression, from ``repro/optim/compression.py``:
+top-k sparsification with error feedback (``topk_compress_ef``,
+``ef_init``) and the per-block int8 quantization of replication payloads
+(``Q_BLOCK``, ``int8_quantize``, ``int8_dequantize``, ``compressed_bytes``).
 
 ``int8_quantize`` is the plain reference that the shard codec kernel
 (``repro_torch/kernels/shard_codec.py``) must match bit for bit: the same
@@ -13,7 +14,34 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree as T
+
 Q_BLOCK = 256
+
+
+def topk_compress_ef(grads, residual, k_frac: float = 0.01):
+    """Top-|k| sparsification with error feedback. Returns (sparse_grads,
+    new_residual): of each leaf's ``g + r`` (fp32), the entries whose
+    magnitude reaches the k-th largest (``k = max(1, int(numel *
+    k_frac))``; ties all pass) are kept, the rest carried in the residual."""
+
+    def one(g, r):
+        g = g.to(torch.float32) + r
+        flat = g.reshape(-1)
+        k = max(1, int(flat.numel() * k_frac))
+        thresh = torch.topk(torch.abs(flat), k).values[-1]
+        sparse = torch.where(torch.abs(g) >= thresh, g, torch.zeros_like(g))
+        return sparse, g - sparse
+
+    paths, pairs = zip(*((path, one(g, r)) for (path, g), r in zip(
+        T.flatten_with_paths(grads), T.leaves(residual))))
+    return (T.unflatten(paths, [s for s, _ in pairs]),
+            T.unflatten(paths, [r for _, r in pairs]))
+
+
+def ef_init(params):
+    return T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device), params)
 
 
 def int8_quantize(x: torch.Tensor, block: int = Q_BLOCK):
