@@ -10,12 +10,14 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    spill lines;
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (read from the configs, at both global
-   batches, 8 and 12, and at the serving runs' prefill and decode shapes:
+   batches, 8 and 12 (PaliGemma's 4 and 6), and at the serving runs' prefill and decode shapes:
    attention over the cache at q_offsets 0 to the cache's last row and a
    ragged Skv, gemma2's local (window 4,096) and global layers with softcap
    50 and scale 0.0625 either side of where the window binds, granite's
    48:1 and llama3's 128:8 at full width; WKV6 at S 1 to 33 from a state)
-   and over the JAX kernel sweeps; the many-leaf encode and decode (one
+   PaliGemma's prefix mask over 256 patches at head dim 256, MQA 8:1, in
+   training, the serving prefill and decode, and fp32 and bf16 cases at
+   head dim 256) and over the JAX kernel sweeps; the many-leaf encode and decode (one
    launch per state) bit for bit against the per-leaf plain versions, the
    decode over all of GPT-2's fp32 leaf shapes and a ragged set; adamw8bit's
    block quantizer on TinyLlama's embedding bit for bit as on the CPU;
@@ -25,8 +27,11 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    a scale-in, 2 steps on 2 — with the launch counters zeroed just before
    each path, read just after it and held to the exact counts its config
    gives: GPT-2 (codec, flash attention), RWKV-6 1.6B (codec, WKV6), Zamba2
-   1.2B (codec, SSD, flash attention) and TinyLlama 1.1B (codec, flash
-   attention at GQA 32:4); each path's full state encoded by the many-leaf kernel bit
+   1.2B (codec, SSD, flash attention), TinyLlama 1.1B (codec, flash
+   attention at GQA 32:4) and PaliGemma 3B at full width on
+   ``PALIGEMMA_LAYERS`` of its 18 layers (``paligemma_cut``; codec, flash
+   attention at hd 256 under the prefix mask, 1024 text tokens behind 256
+   seeded patch embeddings per row); each path's full state encoded by the many-leaf kernel bit
    for bit as the per-leaf plain encode; one scale-out's phases timed apart
    on the trainer's state (plan, encode, decode, round-trip check), the
    decoded state bit for bit as the per-leaf plain decode; one profiled
@@ -52,10 +57,11 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    ``train_elastic`` on GPT-2 at full width and depth, global batch 16 -> 20
    -> 16 over 4 -> 5 -> 4 logical devices, launches held to the exact
    counts, step times, the scale-out and peak memory;
-3d. serving: GPT-2, RWKV-6 1.6B, Zamba2 1.2B and TinyLlama 1.1B at full
-   width and depth through the serving launcher's ``generate``
+3d. serving: GPT-2, RWKV-6 1.6B, Zamba2 1.2B, TinyLlama 1.1B and PaliGemma
+   3B at full width and depth through the serving launcher's ``generate``
    (``Model.prefill``, ``Model.decode_step``): batch 8, a 1024-token
-   prompt, 128 greedy new tokens, a cache of 1152 positions, bf16; and
+   prompt, 128 greedy new tokens, a cache of 1152 positions (PaliGemma:
+   256 seeded patch embeddings in front, 1408 rows), bf16; and
    gemma2-27b at full width on 2 layers (one local, one global), batch 2,
    a 4,608-token prompt (so that the window of 4,096 binds), 64 new
    tokens; launches held to the exact
@@ -73,7 +79,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    layer with it, the attention softcap dropped; RWKV-6: ``x_last`` or the
    state not carried; Zamba2: the conv or the SSM state not carried, the
    shared block's applications sharing one KV cache, the cache written one
-   slot off, RoPE from position 0 at decode) that must fail that check;
+   slot off, RoPE from position 0 at decode; PaliGemma: the cache written
+   one slot off, decoding at the JAX launcher's ``S + t``, the causal mask
+   on the cached prefill, and a cache without the patches' rows, which
+   must raise) that must fail that check;
 3e. granite-34b and llama3-405b, which fit no card, reduced: 2 steps
    under ``ElasticTrainer`` with the int8 codec, a scale-out that leaves
    the state bit-unchanged (llama3's adamw8bit codes ship raw, their fp32
@@ -89,10 +98,13 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    beside the CUDA-event window, which holds the host's dispatch too, and
    for the decode the library call ``torch.mul(codes, scales[:, None])``
    leaf by leaf; the decode shapes of attention (GPT-2's, Zamba2's,
-   TinyLlama's and gemma2's local and global layers, beside
+   TinyLlama's, PaliGemma's and gemma2's local and global layers, beside
    ``scaled_dot_product_attention`` where it computes the same function:
    it has no softcap), WKV6 and SSD as device time per launch, one input
-   set per layer (per application of Zamba2's shared block);
+   set per layer (per application of Zamba2's shared block); attention
+   at PaliGemma's training shape (prefix 256, hd 256) beside SDPA with
+   the prefix mask as an explicit boolean mask (a ``kernel_train_shape``
+   line);
 6. the simulator substrate (``repro_torch.core``: topology on a stdlib
    graph, the event simulator, the cluster monitor, the negotiation
    protocols, the baselines), host Python that launches no kernel:
@@ -194,6 +206,23 @@ ATTN_BF16_EDGES = [c[:-1] + (torch.bfloat16,) for c in ATTN_SWEEP
     (1, 300, 300, 2, 2, 64, "prefix", 100, 40, 0.0, torch.bfloat16),
     (1, 1024, 1024, 2, 2, 64, "prefix", 64, 64, 0.0, torch.bfloat16),
     (1, 1024, 1024, 2, 1, 64, "causal", 128, 0, 0.0, torch.bfloat16),
+    # Head dim 256 (PaliGemma's; a 2-stage K/V ring): a ragged Sq at MQA
+    # 8:1, a prefix of 100 (no multiple of the 64-key tile) with a window,
+    # a prefix into a longer cache (Skv > Sq, ragged both), a softcap.
+    (1, 300, 300, 8, 1, 256, "causal", 0, 0, 0.0, torch.bfloat16),
+    (1, 300, 300, 4, 1, 256, "prefix", 64, 100, 0.0, torch.bfloat16),
+    (2, 130, 330, 8, 1, 256, "prefix", 0, 100, 0.0, torch.bfloat16),
+    (1, 257, 257, 2, 2, 256, "full", 0, 0, 30.0, torch.bfloat16),
+]
+# Head dim 256 in fp32, beside the JAX sweep: the prefix mask with a prefix
+# of 100 (no multiple of the 64-key tile), also into a longer cache (Skv >
+# Sq) and with a window; causal at GQA 2:1; full.
+ATTN_HD256 = [
+    (2, 300, 300, 8, 1, 256, "prefix", 0, 100, 0.0, torch.float32),
+    (1, 200, 330, 4, 1, 256, "prefix", 0, 100, 0.0, torch.float32),
+    (1, 200, 200, 2, 1, 256, "prefix", 48, 100, 0.0, torch.float32),
+    (1, 128, 128, 4, 2, 256, "causal", 0, 0, 0.0, torch.float32),
+    (1, 96, 160, 2, 2, 256, "full", 0, 0, 0.0, torch.float32),
 ]
 
 
@@ -225,13 +254,23 @@ SSD_BF16_EDGES = [
 ]
 # The main paths, one per trained family, and their steps: before the
 # scale-out (2 logical devices), between it and the scale-in (3), after (2).
-PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b"]
+PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b", "paligemma-3b"]
 STEPS = (3, 2, 2)
-MAIN_BATCHES = (PER_DEVICE_BATCH * 2, PER_DEVICE_BATCH * 3)
+# PaliGemma's path runs at per-device batch 2 (global batch 4, then 6):
+# at 12 rows its loss over the 257,216-token vocabulary holds about five
+# fp32 logits-sized buffers of 12.6 GB at once, and ran out of the card's
+# memory at every depth tried, 6 to 18 layers (tools/paligemma_memory.py).
+PATH_PER_DEVICE_BATCH = {"paligemma-3b": 2}
+# The main paths that run with the caching allocator's expandable segments.
+# PaliGemma's allocates state-sized blocks (the scale-out's decoded copy, 23
+# GB at 14 layers) after steps whose logits buffers leave fixed segments cut
+# up: the decode then ran out of memory with 10-21 GB reserved but
+# unallocated (tools/paligemma_memory.py).
+EXPANDABLE_SEGMENTS = ("paligemma-3b",)
 # The serving runs (phase 3d), one per served family at full width and
 # depth: batch 8, a 1024-token prompt, 128 greedy new tokens (the prefill's
 # and 127 decode steps'), and so a cache of 1152 positions.
-SERVE_PATHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b")
+SERVE_PATHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b", "paligemma-3b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 128
 SERVE_CACHE = SERVE_PROMPT + SERVE_TOKENS
 # gemma2-27b served at full width on a cut depth: one local (window 4,096)
@@ -239,6 +278,14 @@ SERVE_CACHE = SERVE_PROMPT + SERVE_TOKENS
 # layer's window binds) and 64 new tokens.
 GEMMA2_LAYERS = 2
 GEMMA2_BATCH, GEMMA2_PROMPT, GEMMA2_TOKENS = 2, 4608, 64
+# PaliGemma's image prefix: its 256 patch embeddings, seeded normals scaled
+# as the port's training batches scale them, go in front of the text, so
+# the training path attends over SEQ + 256 positions and a served request's
+# cache holds 256 rows more. Its training path runs at full width on
+# PALIGEMMA_LAYERS of its 18 layers (``paligemma_cut``); served, it runs at
+# full width and depth.
+PATCH_SCALE = 0.02
+PALIGEMMA_LAYERS = 14
 # The dense configs that fit no card, run reduced (phase 3e): a short
 # elastic run with one int8 scale-out and a served request each.
 REDUCED_DENSE = ("granite-34b", "llama3-405b")
@@ -444,23 +491,26 @@ def check_encode_many(codec, leaves):
 
 def main_shapes():
     """The shapes each recurrent or attention kernel gets on the main paths,
-    read from the configs, at both global batches: ``{kernel: [(path,
-    shape), ...]}`` with attention ``(B, H, K, hd, softcap, rope_theta or
-    0)`` (causal, bf16, scale 1/sqrt(hd) as every config here), wkv6 ``(B,
-    S, H, hd)`` and ssd ``(B, S, H, P, N)``. One forward runs over the
-    global batch, so the batch is the cluster's."""
-    from repro_torch.configs import get_config
+    read from the configs (``path_config``), at both global batches:
+    ``{kernel: [(path, shape), ...]}`` with attention ``(B, S, H, K, hd,
+    kind, prefix_len, softcap, rope_theta or 0)`` (bf16, scale 1/sqrt(hd)
+    as every config here; causal, or for a vlm the prefix mask over its
+    patches, which S counts), wkv6 ``(B, S, H, hd)`` and ssd ``(B, S, H,
+    P, N)``. One forward runs over the global batch, so the batch is the
+    cluster's."""
     from repro_torch.models import mamba2
 
     shapes = {"flash_attention": [], "wkv6": [], "ssd": []}
     for name in PATHS:
-        cfg = get_config(name)
-        for B in MAIN_BATCHES:
-            if cfg.family in ("dense", "hybrid"):
+        cfg = path_config(name)
+        prefix = prefix_rows(cfg)
+        for B in path_batches(name):
+            if cfg.family in ("dense", "hybrid", "vlm"):
                 theta = cfg.rope_theta if cfg.positions == "rope" else 0.0
                 shapes["flash_attention"].append((name, (
-                    B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                    cfg.attn_softcap, theta)))
+                    B, SEQ + prefix, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                    "prefix" if prefix else "causal", prefix, cfg.attn_softcap,
+                    theta)))
             if cfg.family == "ssm":
                 shapes["wkv6"].append((name, (B, SEQ, cfg.n_heads, cfg.head_dim)))
             if cfg.family == "hybrid":
@@ -479,6 +529,77 @@ def gemma2_cut():
     return dataclasses.replace(get_config("gemma2-27b"), n_layers=GEMMA2_LAYERS)
 
 
+def paligemma_cut():
+    """paligemma-3b at full width on ``PALIGEMMA_LAYERS`` of its layers, the
+    depth its training path fits in the card's memory (a config chosen
+    here, not an option of the port)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("paligemma-3b"), n_layers=PALIGEMMA_LAYERS)
+
+
+@contextlib.contextmanager
+def allocator_segments(expandable):
+    """The caching allocator with expandable segments for the duration, if
+    ``expandable``; its cache emptied before and after, so that each
+    setting allocates its own segments. The other phases keep the default
+    fixed segments."""
+    if not expandable:
+        yield
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def path_batches(name):
+    """The global batches of the main path ``name``: on 2 and on 3 logical
+    devices."""
+    per_device = PATH_PER_DEVICE_BATCH.get(name, PER_DEVICE_BATCH)
+    return (2 * per_device, 3 * per_device)
+
+
+def path_config(name):
+    """The config the main path ``name`` trains: PaliGemma's cut, the full
+    config otherwise."""
+    from repro_torch.configs import get_config
+
+    return paligemma_cut() if name == "paligemma-3b" else get_config(name)
+
+
+def prefix_rows(cfg):
+    """The rows a vlm's patches take in front of its text: in the
+    attention, in the KV cache; 0 for the other families."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def patches_for(cfg, n_rows, rng):
+    """A vlm's patch embeddings for ``n_rows`` batch rows, (n_rows,
+    n_patches, d_model) fp32 on the host from the numpy generator ``rng``:
+    normals x ``PATCH_SCALE``; None for the other families."""
+    if cfg.family != "vlm":
+        return None
+    return (rng.standard_normal((n_rows, cfg.n_patches, cfg.d_model), dtype=np.float32)
+            * np.float32(PATCH_SCALE))
+
+
+def path_batch(cfg, toks, rng):
+    """One step's global batch: the tokens and, for a vlm, one row of
+    patches per token row (``patches_for``)."""
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patches"] = patches_for(cfg, len(toks), rng)
+    return batch
+
+
 def serve_runs():
     """``(label, cfg, batch, prompt, new tokens)`` of each serving run
     (phase 3d): ``SERVE_PATHS`` at full width and depth, then gemma2's cut."""
@@ -490,10 +611,10 @@ def serve_runs():
                 GEMMA2_PROMPT, GEMMA2_TOKENS)])
 
 
-def decode_q_offsets(cfg, cache_len):
-    """``DECODE_Q_OFFSETS``, and for a longer cache its last row; with a
-    window, the rows either side of where it starts to bind."""
-    offsets = set(DECODE_Q_OFFSETS) | {cache_len - 1}
+def decode_q_offsets(cfg, cache_len, extra=()):
+    """``DECODE_Q_OFFSETS``, ``extra``, and for a longer cache its last row;
+    with a window, the rows either side of where it starts to bind."""
+    offsets = set(DECODE_Q_OFFSETS) | set(extra) | {cache_len - 1}
     if cfg.sliding_window:
         offsets |= {cfg.sliding_window - 1, cfg.sliding_window}
     return sorted(o for o in offsets if o < cache_len)
@@ -510,13 +631,15 @@ def layer_kinds(cfg):
 def serve_attention_cases():
     """``(label, case, rope_theta, q_offset, scale)`` at the shapes the
     serving runs give the kernel, for each with attention (GPT-2, TinyLlama,
-    gemma2's cut, each kind of its layers; Zamba2, whose queries and keys go
-    through RoPE), and at full width for the dense configs the card runs
-    only reduced (``FULL_WIDTH_ATTENTION``): the prefill of the prompt into
-    the cache (its last rows masked), the decode over the whole cache at
-    each of ``decode_q_offsets``, and for GPT-2 over a ragged Skv of 1000,
-    bf16 as the runs give them; scale ``query_scale`` where the config sets
-    one (None: 1/sqrt(hd))."""
+    PaliGemma, gemma2's cut, each kind of its layers; Zamba2, whose queries
+    and keys go through RoPE), and at full width for the dense configs the
+    card runs only reduced (``FULL_WIDTH_ATTENTION``): the prefill of the
+    prompt into the cache (its last rows masked; PaliGemma's patches and
+    prompt under the prefix mask), the decode over the whole cache at each
+    of ``decode_q_offsets`` (PaliGemma's also either side of the prefix's
+    end and at the prompt's last row), and for GPT-2 over a ragged Skv of
+    1000, bf16 as the runs give them; scale ``query_scale`` where the
+    config sets one (None: 1/sqrt(hd))."""
     from repro_torch.configs import get_config
 
     runs = [(label, cfg, B, P, P + n) for label, cfg, B, P, n in serve_runs()]
@@ -524,21 +647,23 @@ def serve_attention_cases():
              for name, B in FULL_WIDTH_ATTENTION]
     cases = []
     for label, cfg, B, P, cache_len in runs:
-        if cfg.family not in ("dense", "hybrid"):
+        if cfg.family not in ("dense", "hybrid", "vlm"):
             continue
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         theta = cfg.rope_theta if cfg.positions == "rope" else 0.0
+        pre = prefix_rows(cfg)
+        extra = (pre - 1, pre, pre + P - 1) if pre else ()
         for kind, window in layer_kinds(cfg):
-            def case(Sq, Skv):
-                return (B, Sq, Skv, H, K, hd, "causal", window, 0, cfg.attn_softcap,
-                        torch.bfloat16)
+            def case(Sq, Skv, prefix=0):
+                return (B, Sq, Skv, H, K, hd, "prefix" if prefix else "causal",
+                        window, prefix, cfg.attn_softcap, torch.bfloat16)
 
             name = f"{label}{kind}"
-            cases += ([(f"{name} serve prefill", case(P, cache_len), theta, 0,
-                        cfg.query_scale)]
-                      + [(f"{name} serve decode q_offset={o}", case(1, cache_len),
-                          theta, o, cfg.query_scale)
-                         for o in decode_q_offsets(cfg, cache_len)])
+            cases += ([(f"{name} serve prefill", case(pre + P, pre + cache_len, pre),
+                        theta, 0, cfg.query_scale)]
+                      + [(f"{name} serve decode q_offset={o}",
+                          case(1, pre + cache_len), theta, o, cfg.query_scale)
+                         for o in decode_q_offsets(cfg, pre + cache_len, extra)])
         if label == "gpt2":
             cases.append((f"{label} serve decode ragged Skv", case(1, 1000), theta,
                           999, None))
@@ -547,14 +672,19 @@ def serve_attention_cases():
 
 def attention_cases():
     """``(label, case, rope_theta, q_offset, scale)``: the main paths'
-    shapes, the serving runs', then the JAX sweep and the bf16 edges;
-    ``case`` in ATTN_SWEEP's layout, ``scale`` None for 1/sqrt(hd)."""
-    cases = [(f"{path} B={B}", (B, SEQ, SEQ, H, K, hd, "causal", 0, 0, softcap,
+    shapes, the serving runs', then the JAX sweep, the fp32 cases at head
+    dim 256 (one a decode row at q_offset 250 over a cache of 330) and the
+    bf16 edges; ``case`` in ATTN_SWEEP's layout, ``scale`` None for
+    1/sqrt(hd)."""
+    cases = [(f"{path} B={B}", (B, S, S, H, K, hd, kind, 0, prefix, softcap,
                                 torch.bfloat16), theta, 0, None)
-             for path, (B, H, K, hd, softcap, theta)
+             for path, (B, S, H, K, hd, kind, prefix, softcap, theta)
              in main_shapes()["flash_attention"]]
     return (cases + serve_attention_cases()
             + [(f"sweep {i}", c, 0.0, 0, None) for i, c in enumerate(ATTN_SWEEP)]
+            + [(f"sweep hd256 {i}", c, 0.0, 0, None) for i, c in enumerate(ATTN_HD256)]
+            + [("sweep hd256 decode", (2, 1, 330, 8, 1, 256, "causal", 0, 0, 0.0,
+                                       torch.float32), 1e4, 250, None)]
             + [(f"sweep bf16 {i}", c, 0.0, 0, None)
                for i, c in enumerate(ATTN_BF16_EDGES)])
 
@@ -594,13 +724,13 @@ def check_attention(fa, gen):
         if not label.startswith("sweep"):
             main_err = max(main_err, err)
             extras = "".join(f", {name} {value}" for name, value in (
-                ("window", case[7]), ("softcap", case[9]), ("scale", scale),
-                ("RoPE", theta)) if value)
-            log(f"attention {label} {case[:6]} bf16 causal{extras}, q_offset "
+                ("window", case[7]), ("prefix", case[8]), ("softcap", case[9]),
+                ("scale", scale), ("RoPE", theta)) if value)
+            log(f"attention {label} {case[:6]} bf16 {case[6]}{extras}, q_offset "
                 f"{q_offset}: max |kernel - plain| {err:.3e} (rtol/atol 2e-2)")
         torch.cuda.empty_cache()
-    log(f"attention: {len(ATTN_SWEEP)} sweep cases and {len(ATTN_BF16_EDGES)} "
-        f"bf16 edges within _tol")
+    log(f"attention: {len(ATTN_SWEEP)} sweep cases, {len(ATTN_HD256) + 1} fp32 "
+        f"cases at hd 256 and {len(ATTN_BF16_EDGES)} bf16 edges within _tol")
     return main_err
 
 
@@ -830,7 +960,7 @@ def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1):
     n = dict.fromkeys(ops.launches, 0)
     n["shard_encode"] = scale_outs if n_coded_leaves else 0
     n["shard_decode"] = scale_outs if n_coded_leaves else 0
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         n["flash_attention"] = per_layer
     elif cfg.family == "ssm":
         n["wkv6"] = per_layer
@@ -852,28 +982,38 @@ def main_path(ops, name):
     from repro_torch.kernels import shard_codec as codec_module
     from repro_torch.models import build_model
 
-    cfg = get_config(name)
+    cfg = path_config(name)
     model = build_model(cfg)
+    per_device = PATH_PER_DEVICE_BATCH.get(name, PER_DEVICE_BATCH)
     loader = ShardedLoader(TokenStream(cfg.vocab, SEQ, seed=0), 4096, [0],
-                           PER_DEVICE_BATCH)
+                           per_device)
+    patch_rng = np.random.default_rng(0)
+
+    def batch_of(toks):
+        return path_batch(cfg, toks, patch_rng)
+
     trainer = ElasticTrainer(model, initial=2,
-                             per_device_batch=PER_DEVICE_BATCH,
+                             per_device_batch=per_device,
                              link_model=link_model, codec="int8",
                              on_reshard=loader.reshard)
     trainer.init()
     n_params = sum(p.numel() for p in T.leaves(trainer.state["params"]))
     manifest = build_manifest(trainer.state)
-    log(f"path {name}: full width and depth ({cfg.n_layers} layers, d_model "
+    depth = ("full width and depth" if cfg.n_layers == get_config(name).n_layers
+             else f"full width, {cfg.n_layers} of {get_config(name).n_layers} layers")
+    patches = (f" and {cfg.n_patches} patch embeddings in front"
+               if cfg.family == "vlm" else "")
+    log(f"path {name}: {depth} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {n_params} params; state {manifest.total_bytes} "
-        f"bytes in {len(manifest.entries)} leaves), seq {SEQ}, per-device "
-        f"batch {PER_DEVICE_BATCH}, int8 codec")
+        f"bytes in {len(manifest.entries)} leaves), seq {SEQ}{patches}, "
+        f"per-device batch {per_device}, int8 codec")
     losses = []
 
     def steps(n):
         for _ in range(n):
             toks = np.concatenate([loader.next_batch(i)
                                    for i in trainer.device_ids()])
-            m = trainer.step({"tokens": toks})
+            m = trainer.step(batch_of(toks))
             losses.append(m["loss"])
             log(f"  step {trainer.step_count} on {len(trainer.active)} "
                 f"devices: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f}")
@@ -897,6 +1037,10 @@ def main_path(ops, name):
     unchanged = all(torch.equal(_bytes(b.to(leaf.device)), _bytes(leaf))
                     for b, leaf in zip(before, T.leaves(trainer.state)))
     del before
+    # The scale-out's codes and decoded copy go back to the device, so that
+    # the larger global batch's steps find room for their large blocks
+    # (PaliGemma's fp32 logits are 12.6 GB at batch 12).
+    torch.cuda.empty_cache()
     steps(STEPS[1])
     ev_in = trainer.scale_in()
     steps(STEPS[2])
@@ -924,6 +1068,7 @@ def main_path(ops, name):
     codec = ev_out.plan_summary["codec"]
     summary = {
         "path": name,
+        "n_layers": cfg.n_layers,
         "n_params": n_params,
         "state_bytes": manifest.total_bytes,
         "losses": losses,
@@ -946,7 +1091,7 @@ def main_path(ops, name):
         f"device memory {peak / 1e9:.1f} GB (scale-out "
         f"{peak_scale_out / 1e9:.1f} GB)")
     log(json.dumps({"main_path": summary}))
-    profile_step(trainer, loader, ops)
+    profile_step(trainer, loader, ops, batch_of)
     return trainer, launches
 
 
@@ -1586,24 +1731,25 @@ def reduced_dense(ops, arch):
     return launches
 
 
-#: Dense configs whose fp32 cached decode parts from the cache-free forward
-#: by the order of its fp32 sums alone, an order cuBLAS (its products) and
-#: PyTorch (the norms' means) pick by the number of rows: a decode step's 8
-#: against the cache-free forward's 8 x 1,031. ``tools/tinyllama_fp32_drift.py``
-#: shows it on the card (PERF.md §6): with the cached side's products and
+#: Dense and vlm configs whose fp32 cached decode parts from the cache-free
+#: forward by the order of its fp32 sums alone, an order cuBLAS (its
+#: products) and PyTorch (the norms' means) pick by the number of rows: a
+#: decode step's 8 against the cache-free forward's 8 x 1,031 (PaliGemma's
+#: 8 x 1,287 with its patches). ``tools/tinyllama_fp32_drift.py`` shows it
+#: on the card for both (PERF.md §6): with the cached side's products and
 #: norms run at the cache-free row counts the gap closes.
-FP32_SUMS_BY_ROWS = ("tinyllama-1.1b",)
+FP32_SUMS_BY_ROWS = ("tinyllama-1.1b", "paligemma-3b")
 
 
 def serve_tol(cfg, dtype):
     """The fixed tolerance of a serving check, tests/test_kernels.py's own:
-    ``_tol`` for the dense family (attention); ``_rec_tol`` for the ssm and
+    ``_tol`` for the dense and vlm families (attention); ``_rec_tol`` for the ssm and
     hybrid families, whose decode runs WKV6 or SSD one step per launch
     where the cache-free forward runs every step in one launch, so their
     fp32 sums come in another order, and for the dense configs of
     ``FP32_SUMS_BY_ROWS``, whose fp32 sums come in another order at a
     decode step's row count."""
-    if cfg.family == "dense" and cfg.name not in FP32_SUMS_BY_ROWS:
+    if cfg.family in ("dense", "vlm") and cfg.name not in FP32_SUMS_BY_ROWS:
         return tol(dtype)
     return rec_tol(dtype)
 
@@ -1628,7 +1774,14 @@ SERVE_FAULTS = {"dense": ("cache written one slot off",
                 "hybrid": ("conv state not carried", "SSM state not carried",
                            "applications sharing one KV cache",
                            "cache written one slot off",
-                           "RoPE positions from 0 at decode")}
+                           "RoPE positions from 0 at decode"),
+                "vlm": ("cache written one slot off",
+                        "decode at the JAX launcher's S + t",
+                        "causal mask on the cached prefill",
+                        "cache without the prefix rows")}
+#: Planted faults that make the cached side raise (a KV cache overflow)
+#: instead of giving logits: the check holds them to raising.
+RAISING_FAULTS = ("cache without the prefix rows",)
 
 
 #: How far the attention softcap must move a score 4 standard deviations
@@ -1684,7 +1837,11 @@ def planted_fault(fault):
     position 0 (a prefill from 0 is unchanged, a decode step is not); on
     the cache path (the prefill into the cache and each decode step), the
     local (even) layers attending without their window, or the global
-    (odd) ones with it, or the attention without its softcap."""
+    (odd) ones with it, or the attention without its softcap; a vlm's
+    decode step written and rotated at ``S + t`` (its position without the
+    patches' rows, as the JAX launcher decodes), its cached prefill under
+    the causal mask instead of the prefix mask, or its cache made without
+    the patches' rows."""
     import dataclasses
 
     from repro_torch.kernels import ops
@@ -1750,6 +1907,30 @@ def planted_fault(fault):
             if cache_kv is not None and is_local is not None:
                 is_local = keep
             return orig(cfg, x, lp, spec, is_local, positions, cache_kv, cache_pos)
+    elif fault == "decode at the JAX launcher's S + t":
+        module, name = transformer, "forward"
+        orig = transformer.forward
+
+        def faulty(cfg, params, tokens, *, patch_embeds=None, cache=None,
+                   cache_pos=None, **kw):
+            if cache is not None and patch_embeds is None and cfg.family == "vlm":
+                cache_pos = int(cache_pos) - cfg.n_patches
+            return orig(cfg, params, tokens, patch_embeds=patch_embeds, cache=cache,
+                        cache_pos=cache_pos, **kw)
+    elif fault == "causal mask on the cached prefill":
+        module, name = L, "attention_sublayer"
+        orig = L.attention_sublayer
+
+        def faulty(params, x, cfg, spec, *, cache_kv=None, **kw):
+            if cache_kv is not None and spec.kind == "prefix":
+                spec = L.MaskSpec("causal", window=spec.window)
+            return orig(params, x, cfg, spec, cache_kv=cache_kv, **kw)
+    elif fault == "cache without the prefix rows":
+        module, name = transformer, "make_cache"
+        orig = transformer.make_cache
+
+        def faulty(cfg, batch, max_len, dtype=torch.bfloat16, device=None, prefix=0):
+            return orig(cfg, batch, max_len, dtype, device)
     elif fault == "the attention softcap dropped":
         module, name = L, "attention_sublayer"
         orig = L.attention_sublayer
@@ -1767,24 +1948,31 @@ def planted_fault(fault):
         setattr(module, name, orig)
 
 
-def serve_forced(cfg, params, tokens, n_prompt, cache_len, dtype=torch.float32):
+def serve_forced(cfg, params, tokens, n_prompt, cache_len, dtype=torch.float32,
+                 patches=None):
     """Serving teacher-forced, activations and KV caches in ``dtype``:
     prefill ``tokens[:, :n_prompt]`` into a cache of ``cache_len``
-    positions (dense, hybrid) or from a zero state (ssm, and hybrid's
-    Mamba2 blocks), then decode the other tokens one per step, each at its
-    position. Returns the logits at positions ``n_prompt - 1`` onwards, (B,
-    n - n_prompt + 1, V) in ``dtype``."""
+    positions (dense, hybrid; a vlm prefills ``patches`` in front, into a
+    cache of ``cache_len`` + n_patches rows) or from a zero state (ssm, and
+    hybrid's Mamba2 blocks), then decode the other tokens one per step,
+    each at its position (a vlm's after the patches' rows). Returns the
+    logits at positions ``n_prompt - 1`` onwards, (B, n - n_prompt + 1, V)
+    in ``dtype``."""
     from repro_torch.models import rwkv6, transformer, zamba2
 
     B, n = tokens.shape
+    pre, first = prefix_rows(cfg), {}
     with torch.no_grad():
-        if cfg.family == "dense":
-            cache = transformer.make_cache(cfg, B, cache_len, dtype, tokens.device)
+        if cfg.family in ("dense", "vlm"):
+            cache = transformer.make_cache(cfg, B, cache_len, dtype, tokens.device,
+                                           prefix=pre)
+            if pre:
+                first = {"patch_embeds": patches}
 
-            def step(toks, pos, cache):
+            def step(toks, pos, cache, **kw):
                 return transformer.forward(cfg, params, toks, cache=cache,
                                            cache_pos=pos, last_only=True,
-                                           dtype=dtype)[:2]
+                                           dtype=dtype, **kw)[:2]
         elif cfg.family == "hybrid":
             cache = zamba2.make_state(cfg, B, cache_len, dtype, tokens.device)
 
@@ -1798,34 +1986,38 @@ def serve_forced(cfg, params, tokens, n_prompt, cache_len, dtype=torch.float32):
                 return rwkv6.forward(cfg, params, toks, state=state,
                                      last_only=True, dtype=dtype)[:2]
 
-        logits, cache = step(tokens[:, :n_prompt], 0, cache)
+        logits, cache = step(tokens[:, :n_prompt], 0, cache, **first)
         out = [logits[:, -1]]
         for pos in range(n_prompt, n):
-            logits, cache = step(tokens[:, pos:pos + 1], pos, cache)
+            logits, cache = step(tokens[:, pos:pos + 1], pre + pos, cache)
             out.append(logits[:, -1])
     return torch.stack(out, dim=1)
 
 
-def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len):
+def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len, patches=None):
     """fp32 cached against cache-free logits: ``serve_forced`` against the
-    cache-free fp32 forward over all of ``tokens``, at every position from
-    the prompt's last on, within ``serve_tol(cfg, fp32)``; then each of
-    ``serve_faults(cfg)`` planted, each of which must leave that
-    tolerance. Raises if either fails; returns the errors."""
+    cache-free fp32 forward over all of ``tokens`` (a vlm's behind its
+    ``patches``), at every position from the prompt's last on, within
+    ``serve_tol(cfg, fp32)``; then each of ``serve_faults(cfg)`` planted,
+    each of which must leave that tolerance, or, for ``RAISING_FAULTS``,
+    raise a KV cache overflow. Raises if either fails; returns the
+    errors."""
     from repro_torch.models import layers as L
     from repro_torch.models.model_api import _family_forward
 
     f32 = torch.float32
+    kw = {"patch_embeds": patches} if cfg.family == "vlm" else {}
     with torch.no_grad():
         hidden, _ = _family_forward(cfg)(cfg, params, tokens,
-                                         return_hidden=True, dtype=f32)
+                                         return_hidden=True, dtype=f32, **kw)
         want = L.unembed(params["embed"], hidden[:, n_prompt - 1:], cfg)
     del hidden
     t = serve_tol(cfg, f32)
 
     def run(fault):
         with planted_fault(fault):
-            got = serve_forced(cfg, params, tokens, n_prompt, cache_len)
+            got = serve_forced(cfg, params, tokens, n_prompt, cache_len,
+                               patches=patches)
         d = (got - want).abs()
         return float(d.max()), int((d > t["atol"] + t["rtol"] * want.abs()).sum())
 
@@ -1838,6 +2030,16 @@ def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len):
                              f"cache-free forward by up to {err:.3e}, {bad} "
                              f"outside {t}")
     for fault in serve_faults(cfg):
+        if fault in RAISING_FAULTS:
+            try:
+                run(fault)
+            except ValueError as e:
+                if "KV cache overflow" not in str(e):
+                    raise
+                out["faults"][fault] = {"raised": str(e)}
+                continue
+            raise AssertionError(f"{cfg.name}: the planted fault {fault!r} "
+                                 f"does not raise")
         f_err, f_bad = run(fault)
         out["faults"][fault] = {"max_abs_diff": f_err, "outside": f_bad}
         if not f_bad:
@@ -1890,9 +2092,13 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     host = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (B, P), generator=host).cuda()
     forced = torch.randint(0, cfg.vocab, (B, FP32_DECODE_STEPS), generator=host).cuda()
+    pre = prefix_rows(cfg)
+    patches = patches_for(cfg, B, np.random.default_rng(1))
+    patches = None if patches is None else torch.from_numpy(patches).cuda()
+    kw = {"patch_embeds": patches} if pre else {}
     # A warm-up request (a prefill and one decode step) first, so that the
     # timed one reads steady times, not the first call's library set-up.
-    generate(model, params, prompts, 2)
+    generate(model, params, prompts, 2, patches=patches)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1900,7 +2106,7 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    run = generate(model, params, prompts, n_tokens, stream=True,
+    run = generate(model, params, prompts, n_tokens, patches=patches, stream=True,
                    keep_logits=True)
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
@@ -1916,11 +2122,11 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
         raise AssertionError(f"serving {name}: logits {tuple(served.shape)}, "
                              f"tokens {tuple(run.tokens.shape)}, finite "
                              f"{bool(torch.isfinite(served).all())}")
-    window = generate(model, params, prompts, n_tokens).decode_ms
+    window = generate(model, params, prompts, n_tokens, patches=patches).decode_ms
     steps = np.array(run.step_ms)
     summary = {
         "model": name, "n_params": n_params, "batch": B, "prompt": P,
-        "new_tokens": n_tokens, "cache_len": P + n_tokens,
+        "prefix_rows": pre, "new_tokens": n_tokens, "cache_len": pre + P + n_tokens,
         "prefill_ms": run.prefill_ms,
         "decode_ms_median": float(np.median(steps)),
         "decode_ms_p90": float(np.percentile(steps, 90)),
@@ -1938,11 +2144,11 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     fwd = _family_forward(cfg)
     t = serve_tol(cfg, torch.bfloat16)
     with torch.no_grad():
-        hidden, _ = fwd(cfg, params, prompts, return_hidden=True)
+        hidden, _ = fwd(cfg, params, prompts, return_hidden=True, **kw)
         ref_prefill = L.unembed(params["embed"], hidden[:, -1], cfg)
         del hidden
         full = torch.cat([prompts, run.tokens[:, :-1]], dim=1)
-        hidden, _ = fwd(cfg, params, full, return_hidden=True)
+        hidden, _ = fwd(cfg, params, full, return_hidden=True, **kw)
         ref = L.unembed(params["embed"], hidden[:, P - 1:], cfg)
         del hidden
     d_prefill = (served[:, 0].float() - ref_prefill.float()).abs()
@@ -1969,18 +2175,22 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     # fp32 cached against cache-free, with the planted faults.
     t0 = time.perf_counter()
     summary["fp32_check"] = serve_fp32_check(
-        cfg, params, torch.cat([prompts, forced], dim=1), P, P + n_tokens)
+        cfg, params, torch.cat([prompts, forced], dim=1), P, P + n_tokens,
+        patches=patches)
     summary["fp32_check"]["s"] = time.perf_counter() - t0
 
     # One profiled decode step, from a fresh prefill and one warm step.
-    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=P + n_tokens)
+    batch = {"tokens": prompts} if patches is None else {"tokens": prompts,
+                                                          "patches": patches}
+    logits, cache = model.prefill(params, batch, max_len=P + n_tokens)
     tok = torch.argmax(logits[:, -1:], dim=-1)
-    logits, cache = model.decode_step(params, {"tokens": tok, "pos": P, "cache": cache})
+    logits, cache = model.decode_step(params, {"tokens": tok, "pos": pre + P,
+                                               "cache": cache})
     tok = torch.argmax(logits[:, -1:], dim=-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        logits, cache = model.decode_step(params, {"tokens": tok, "pos": P + 1,
+        logits, cache = model.decode_step(params, {"tokens": tok, "pos": pre + P + 1,
                                                    "cache": cache})
         torch.argmax(logits[:, -1:], dim=-1)
         torch.cuda.synchronize()
@@ -2026,7 +2236,8 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     log(f"  fp32 prefill + {FP32_DECODE_STEPS} forced decode steps vs the "
         f"cache-free forward: max |diff| {fp['max_abs_diff']:.3e} (within "
         f"{fp['tolerance']}); planted faults: "
-        + "; ".join(f"{k} {v['max_abs_diff']:.3e}, {v['outside']} outside"
+        + "; ".join(f"{k}: raised {v['raised']!r}" if "raised" in v else
+                    f"{k} {v['max_abs_diff']:.3e}, {v['outside']} outside"
                     for k, v in fp["faults"].items()))
     log(json.dumps({"serving": summary}))
     del params, model, run
@@ -2035,18 +2246,20 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     return launches
 
 
-def profile_step(trainer, loader, ops):
+def profile_step(trainer, loader, ops, batch_of):
     """Where one steady step's device time goes: kernels by device time
     (torch.profiler), and the device's busy share of the step's wall time;
     the device time inside each plain backward (a ``record_function`` range
-    in ``kernels.ops``). Runs after the launch counters were read."""
+    in ``kernels.ops``). ``batch_of`` makes the step's batch of the loader's
+    tokens. Runs after the launch counters were read."""
     from torch.profiler import ProfilerActivity, profile
 
-    toks = np.concatenate([loader.next_batch(i) for i in trainer.device_ids()])
+    batch = batch_of(np.concatenate([loader.next_batch(i)
+                                     for i in trainer.device_ids()]))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.step({"tokens": toks})
+        trainer.step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, ranges = device_times(prof.profiler.kineto_results.events(),
@@ -2157,8 +2370,9 @@ def reference_check(name):
     state = cpu.init_train_state(torch.Generator().manual_seed(0))
     gstate = T.tree_map(lambda t: t.to("cuda", copy=True), state)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(4, 129))
-    _, m_cpu = cpu.make_train_step()(state, {"tokens": tokens})
-    _, m_gpu = gpu.make_train_step()(gstate, {"tokens": tokens})
+    batch = path_batch(cfg, tokens, np.random.default_rng(1))
+    _, m_cpu = cpu.make_train_step()(state, batch)
+    _, m_gpu = gpu.make_train_step()(gstate, batch)
     for key in ("loss", "grad_norm"):
         a, b = float(m_gpu[key]), float(m_cpu[key])
         # bf16 activations on both sides; the kernels and the plain
@@ -2274,6 +2488,53 @@ def time_attention(fa, MaskSpec, gen):
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
+def time_prefix_attention(fa, MaskSpec, gen, name, cfg, B):
+    """The bf16 kernel at a vlm training path's attention shape: batch
+    ``B``, the text (``SEQ``) behind the patches under the prefix mask;
+    beside it the plain version and ``scaled_dot_product_attention`` with
+    the same mask as an explicit boolean mask (checked against the plain
+    version at ``_tol``). The bound counts the (q, k) pairs the mask
+    admits."""
+    from repro_torch.models.layers import _mask_block
+
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pre = prefix_rows(cfg)
+    S = SEQ + pre
+    bf16 = torch.bfloat16
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(bf16)
+    k, v = (torch.randn((B, S, K, hd), generator=gen, device="cuda").to(bf16)
+            for _ in range(2))
+    scale = cfg.query_scale or hd ** -0.5
+    spec = MaskSpec("prefix", prefix_len=pre)
+    pos = torch.arange(S, device="cuda")
+    mask = _mask_block(spec, pos, pos)
+
+    def kernel():
+        return fa.flash_attention_kernel(q, k, v, scale=scale, kind="prefix",
+                                         prefix_len=pre)
+
+    def plain():
+        return fa.attention_plain(q, k, v, spec, scale=scale)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[None, None], scale=scale,
+            enable_gqa=H != K).transpose(1, 2)
+
+    want = plain().float()
+    torch.testing.assert_close(kernel().float(), want, **tol(bf16))
+    torch.testing.assert_close(library().float(), want, **tol(bf16))
+    del want
+    pairs = int(mask.sum())
+    flops = 4 * B * H * hd * pairs
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)  # q, o; k, v
+    return dict(model=name, shape=[B, S, S, H, K, hd], prefix=pre,
+                admitted_pairs_per_head=pairs, ms=cuda_ms(kernel, 20),
+                plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 20),
+                bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
+
+
 def time_wkv6(W, gen, shape):
     """At the RWKV-6 path's shape (global batch 8) and dtypes (fp32 r/k/v
     and decays)."""
@@ -2368,8 +2629,8 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if n_sets is None:
         n_sets = zamba2.n_shared_apps(cfg) if cfg.family == "hybrid" else cfg.n_layers
-    cache_len = P + n_tokens
-    q_offset = P + n_tokens // 2
+    cache_len = prefix_rows(cfg) + P + n_tokens
+    q_offset = prefix_rows(cfg) + P + n_tokens // 2
     bf16 = torch.bfloat16
     sets = [(torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(bf16),
              torch.randn((B, cache_len, K, hd), generator=gen, device="cuda").to(bf16),
@@ -3252,26 +3513,27 @@ def main():
     launches = {name: 0 for name in ops.launches}
     times = {}
     for name in PATHS:
-        trainer, path_launches = main_path(ops, name)
-        for k, n in path_launches.items():
-            launches[k] += n
-        if name == "gpt2":
-            times["shard_encode"], times["shard_decode"] = time_codec(
-                codec, trainer.state)
-            gpt2_leaf_bytes = [leaf.numel() * 4 for leaf in T.leaves(trainer.state)
-                               if leaf.dtype == torch.float32]
-            if old is not None:
-                leaves = [leaf for leaf in T.leaves(trainer.state)
-                          if leaf.dtype == torch.float32]
-                for key, base in time_baseline_codec(old, leaves).items():
-                    for field in ("baseline_ms", "baseline_device_ms"):
-                        if field in base:
-                            times[key][field] = base[field]
-                del leaves
-        replica_tier(trainer, name)
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
+        with allocator_segments(name in EXPANDABLE_SEGMENTS):
+            trainer, path_launches = main_path(ops, name)
+            for k, n in path_launches.items():
+                launches[k] += n
+            if name == "gpt2":
+                times["shard_encode"], times["shard_decode"] = time_codec(
+                    codec, trainer.state)
+                gpt2_leaf_bytes = [leaf.numel() * 4 for leaf in T.leaves(trainer.state)
+                                   if leaf.dtype == torch.float32]
+                if old is not None:
+                    leaves = [leaf for leaf in T.leaves(trainer.state)
+                              if leaf.dtype == torch.float32]
+                    for key, base in time_baseline_codec(old, leaves).items():
+                        for field in ("baseline_ms", "baseline_device_ms"):
+                            if field in base:
+                                times[key][field] = base[field]
+                    del leaves
+            replica_tier(trainer, name)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
 
     # Phase 3b: self-healing on GPT-2, its launches counted like a path's.
     for k, n in self_healing(ops).items():
@@ -3309,6 +3571,17 @@ def main():
 
     # Phase 5: times (the codec's were taken after the GPT-2 path).
     times["flash_attention"] = time_attention(fa, MaskSpec, gen)
+    for name in PATHS:
+        cfg = path_config(name)
+        if cfg.family != "vlm":
+            continue
+        # The path's global batch, and the serving runs' batch of 8.
+        for B in sorted({path_batches(name)[0], SERVE_BATCH}):
+            t = time_prefix_attention(fa, MaskSpec, gen, name, cfg, B)
+            bound_ms, bound_by = t.pop("bound")
+            log(json.dumps({"kernel_train_shape": "flash_attention", **t,
+                            "bound_ms": bound_ms, "bound_by": bound_by}))
+            torch.cuda.empty_cache()
     shapes = main_shapes()
     times["wkv6"] = time_wkv6(W, gen, shapes["wkv6"][0][1])
     times["ssd"] = time_ssd(SD, gen, shapes["ssd"][0][1])

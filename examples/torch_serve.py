@@ -1,5 +1,6 @@
 """Serving demo on the PyTorch port: batched prefill + greedy decode with
-a KV cache (the dense family: TinyLlama, GPT-2, granite, llama3, gemma2),
+a KV cache (the dense family: TinyLlama, GPT-2, granite, llama3, gemma2;
+PaliGemma, whose cache starts with its image patches' rows),
 a recurrent state (RWKV-6) or both (Zamba2: a KV cache per application of
 its shared attention block beside the Mamba2 blocks' conv and SSM states),
 the twin of ``examples/serve.py``.
@@ -12,7 +13,8 @@ for the whole generation, then decode tokens autoregressively through
 
 The default arch is ``tinyllama-1.1b``, as in the JAX demo; ``--arch``
 takes ``gpt2``, ``granite-34b``, ``llama3-405b``, ``gemma2-27b``,
-``rwkv6-1.6b`` and ``zamba2-1.2b`` too. Runs on CUDA unless ``--device``
+``rwkv6-1.6b``, ``zamba2-1.2b`` and ``paligemma-3b`` (seeded random patch
+embeddings in front of the prompts) too. Runs on CUDA unless ``--device``
 names another device (``cpu`` runs the kernels' plain versions).
 """
 import argparse
@@ -49,9 +51,11 @@ def main(argv=None):
     params = model.init()
 
     B, S = args.batch, args.prompt_len
-    prompts = torch.randint(0, cfg.vocab, (B, S),
-                            generator=torch.Generator().manual_seed(1))
-    gen = generate(model, params, prompts, args.tokens).tokens.cpu()
+    host = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=host)
+    patches = (torch.randn((B, cfg.n_patches, cfg.d_model), generator=host) * 0.02
+               if cfg.family == "vlm" else None)
+    gen = generate(model, params, prompts, args.tokens, patches=patches).tokens.cpu()
 
     print(f"arch={cfg.name} prefill={S} decode={args.tokens} batch={B}")
     for b in range(B):

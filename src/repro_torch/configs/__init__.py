@@ -1,7 +1,7 @@
 """Architecture configs of the port: the families it trains — the dense
 family (GPT-2, TinyLlama, granite-34b, llama3-405b, gemma2-27b), RWKV-6
-(ssm) and Zamba2 (hybrid). The other configs of ``repro.configs``
-(whisper, paligemma, the MoE models) come with their model code."""
+(ssm), Zamba2 (hybrid) and PaliGemma (vlm). The other configs of
+``repro.configs`` (whisper, the MoE models) come with their model code."""
 from repro_torch.configs.base import (
     SHAPE_CELLS,
     SHAPES,
@@ -18,6 +18,7 @@ from repro_torch.configs import (  # noqa: F401
     gpt2,
     granite_34b,
     llama3_405b,
+    paligemma_3b,
     rwkv6_1_6b,
     tinyllama_1_1b,
     zamba2_1_2b,

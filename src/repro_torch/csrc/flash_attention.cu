@@ -17,7 +17,10 @@
 //   warpgroups owns 128 query rows of one (b, h), 64 rows each; Q stays in
 //   shared memory for the whole CTA. KV tiles of 64 keys stream through a
 //   ring of 3 stages in dynamic shared memory, loaded by cp.async two
-//   tiles ahead of the math, so the copies overlap the products. Every
+//   tiles ahead of the math, so the copies overlap the products (at hd 256
+//   the ring holds 2 stages, one tile ahead: Q and 3 stages of K and V
+//   would need 263,168 bytes, past the 232,448 a block may opt in to; 2
+//   need 197,632). Every
 //   tile sits in shared memory in the 128-byte-swizzle layout that TMA
 //   would write (16-byte piece c of row r at c ^ (r % 8)), with head dims
 //   below 64 zero-padded to one 128-byte row, so the products read it
@@ -26,7 +29,9 @@
 //     O += P V: wgmma.m64n64k16 with P (the score accumulators rounded to
 //       bf16, whose layout is the A fragment) in registers, and V read
 //       MN-major from the same swizzled rows through the transpose bit, so
-//       no transposed copy is built; one product per 64 columns of hd.
+//       no transposed copy is built; one product per 64 columns of hd
+//       (four at hd 256, whose 64 x 256 fp32 output accumulator is 128
+//       registers a thread beside the 32 of the score tile).
 //   Each warpgroup classifies each KV tile once against its 64 rows:
 //   empty tiles are skipped, whole ones skip the mask, and only partial
 //   ones (the causal diagonal, window edges, the ragged Skv edge) test
@@ -40,8 +45,9 @@
 // * fp32 (the parity sweeps, held to 2e-5, which tensor cores cannot meet):
 //   plain FMA on the CUDA cores. A CTA of 256 threads owns 64 rows, four
 //   threads per row, each holding an interleaved quarter of q and of the
-//   accumulator; K/V tiles in shared memory as float4 rows; the softmax
-//   rescales once per 16 keys.
+//   accumulator; K/V tiles in shared memory as float4 rows (128 KB at hd
+//   256, through the dynamic shared-memory opt-in); the softmax rescales
+//   once per 16 keys.
 //
 // Both skip KV tiles that the mask removes entirely, which leaves the result
 // bit-identical (such a tile adds exp(-2e38 - m) = 0 and rescales by
@@ -116,7 +122,10 @@ __device__ __forceinline__ void tile_of_block(const Params& p, int& b, int& h,
 constexpr int kWgRows = 128;    // query rows per CTA: two warpgroups of 64
 constexpr int kWgThreads = 256;
 constexpr int kWgKeys = 64;     // keys per KV tile
-constexpr int kStages = 3;      // KV tiles in flight
+// KV tiles in the ring: 3 (two loads ahead of the math), or 2 at hd 256,
+// where Q and three stages would not fit in a block's shared memory.
+template <int HD>
+__host__ __device__ constexpr int stages_for() { return HD >= 256 ? 2 : 3; }
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -260,6 +269,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kQBytes = kWgRows * HDP * 2;
   constexpr int kKVBytes = kWgKeys * HDP * 2;
   constexpr int kSteps = HDP / 16;  // k-steps of QKᵀ
+  constexpr int kStages = stages_for<HD>();
   extern __shared__ unsigned char smem_raw[];
   // Swizzle atoms are 1024 bytes and must start 1024-byte aligned.
   const uint32_t raw = smem_addr(smem_raw);
@@ -605,7 +615,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const Params& p, cudaStream_t stream) {
   constexpr int HDP = HD < 64 ? 64 : HD;
   // Q, the K and V rings, and the slack that aligns them to 1024 bytes.
-  constexpr int kSmem = (kWgRows + 2 * kStages * kWgKeys) * HDP * 2 + 1024;
+  constexpr int kSmem = (kWgRows + 2 * stages_for<HD>() * kWgKeys) * HDP * 2 + 1024;
+  static_assert(kSmem <= 232448, "past the H100's shared memory per block");
   const cudaError_t e = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(flash_attention_wgmma_kernel<HD>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -659,6 +670,7 @@ extern "C" int repro_flash_attention_fwd(
     case 32: return launch<32>(dtype, q, k, v, o, p, st);
     case 64: return launch<64>(dtype, q, k, v, o, p, st);
     case 128: return launch<128>(dtype, q, k, v, o, p, st);
+    case 256: return launch<256>(dtype, q, k, v, o, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

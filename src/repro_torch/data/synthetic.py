@@ -83,18 +83,25 @@ class ShardedLoader:
         return self.stream.batch(idx)
 
 
+def stub_inputs(cfg, n_rows: int, seed: int = 0) -> dict:
+    """The stubbed encoder inputs of ``n_rows`` batch rows, as
+    ``make_train_batch`` makes them: a vlm's patch embeddings (n_rows,
+    n_patches, d_model), an encdec's frames (n_rows, enc_len, d_model),
+    seeded normals × 0.02; nothing for the token-only families."""
+    if cfg.family == "vlm":
+        rng = np.random.RandomState(seed)
+        return {"patches": rng.randn(n_rows, cfg.n_patches,
+                                     cfg.d_model).astype(np.float32) * 0.02}
+    if cfg.family == "encdec":
+        rng = np.random.RandomState(seed)
+        return {"frames": rng.randn(n_rows, cfg.enc_len,
+                                    cfg.d_model).astype(np.float32) * 0.02}
+    return {}
+
+
 def make_train_batch(cfg, cell, stream: Optional[TokenStream] = None,
                      seed: int = 0) -> dict:
     """Host-side global batch for a shape cell (used by the launcher)."""
     stream = stream or TokenStream(cfg.vocab, cell.seq_len, seed=seed)
     tokens = stream.batch(range(cell.global_batch))
-    batch = {"tokens": tokens}
-    if cfg.family == "vlm":
-        rng = np.random.RandomState(seed)
-        batch["patches"] = rng.randn(cell.global_batch, cfg.n_patches,
-                                     cfg.d_model).astype(np.float32) * 0.02
-    if cfg.family == "encdec":
-        rng = np.random.RandomState(seed)
-        batch["frames"] = rng.randn(cell.global_batch, cfg.enc_len,
-                                    cfg.d_model).astype(np.float32) * 0.02
-    return batch
+    return {"tokens": tokens, **stub_inputs(cfg, cell.global_batch, seed)}

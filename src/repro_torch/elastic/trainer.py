@@ -226,19 +226,23 @@ class ElasticTrainer:
         return self.state
 
     def step(self, batch: dict):
-        """batch arrays lead with global_batch (= per_device × n_active)."""
+        """batch arrays lead with global_batch (= per_device × n_active):
+        the tokens and, for the vlm family, the patches. Every array goes
+        to the model's device and the whole dict to the step, as the JAX
+        trainer puts the whole batch on its mesh."""
         n = len(self.active)
-        tokens = batch["tokens"]
-        if not isinstance(tokens, torch.Tensor):
-            tokens = torch.from_numpy(np.asarray(tokens))
-        if tokens.shape[0] != self.global_batch:
-            raise ValueError(f"batch of {tokens.shape[0]} rows; the global "
-                             f"batch is {self.global_batch}")
+        moved = {}
+        for key, x in batch.items():
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.asarray(x))
+            if x.shape[0] != self.global_batch:
+                raise ValueError(f"batch[{key!r}] of {x.shape[0]} rows; the "
+                                 f"global batch is {self.global_batch}")
+            moved[key] = x.to(self.model.device, non_blocking=True)
         if self._step_fn is None:
             self._step_fn = self.model.make_train_step()
-        tokens = tokens.to(self.model.device, non_blocking=True)
         t0 = time.perf_counter()
-        self.state, metrics = self._step_fn(self.state, {"tokens": tokens})
+        self.state, metrics = self._step_fn(self.state, moved)
         metrics = {k: float(v) for k, v in metrics.items()}
         dt = time.perf_counter() - t0
         self._step_times.setdefault(n, []).append(dt)

@@ -1,6 +1,7 @@
 """Serving launcher of the port, from ``repro/launch/serve.py``: batched
 prefill + greedy autoregressive decode with a KV cache (dense: GPT-2,
-TinyLlama, granite, llama3, gemma2), a recurrent state (ssm) or both
+TinyLlama, granite, llama3, gemma2; vlm: PaliGemma, whose cache holds the
+image patches' rows before the prompt's), a recurrent state (ssm) or both
 (hybrid: one KV cache per application of the shared attention block, and
 each Mamba2 block's conv and SSM states), request after request, with
 per-phase timing.
@@ -14,8 +15,14 @@ flags keep their defaults and meanings, ``--arch`` defaulting to
 unused: decoding is greedy. ``--device`` is the port's own: CUDA unless
 given, and asking for CUDA where there is none raises
 (``repro_torch.device.resolve_device``). An arch the port does not have
-yet (whisper-small, paligemma-3b, the MoE models) exits non-zero with a
-message.
+yet (whisper-small, the MoE models) exits non-zero with a message.
+
+PaliGemma (``--arch paligemma-3b``) is served with seeded random patch
+embeddings (normals × 0.02, as the training batches make them), where the
+JAX launcher passes zeros, and each decode step writes the cache row after
+the patches and the prompt, ``n_patches + S + t``. The JAX launcher
+decodes at ``S + t``, which overwrites rows its prefill filled and rotates
+the step at the wrong RoPE position.
 """
 from __future__ import annotations
 
@@ -51,12 +58,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, prompts, n_tokens: int, *, stream: bool = False,
-             keep_logits: bool = False) -> Generation:
+def generate(model, params, prompts, n_tokens: int, *, patches=None,
+             stream: bool = False, keep_logits: bool = False) -> Generation:
     """Prefill ``prompts`` (B, S) into a cache of ``S + n_tokens``
     positions (for every family: the JAX launcher serves the hybrid one
     through its ``Model.prefill``, which sizes the cache at S), then
-    ``n_tokens - 1`` greedy decode steps: ``n_tokens`` new tokens. The
+    ``n_tokens - 1`` greedy decode steps: ``n_tokens`` new tokens. A vlm
+    takes ``patches`` (B, n_patches, d): they are prefilled in front of
+    the prompt, the cache holds ``n_patches`` rows more, and step ``t``
+    decodes at row ``n_patches + S + t``. The
     decode loop is timed as one window closed by one sync, as the JAX
     launcher times it; with ``stream`` each step is closed by a sync and
     timed, as for a server that hands out each token as it comes, and the
@@ -64,9 +74,15 @@ def generate(model, params, prompts, n_tokens: int, *, stream: bool = False,
     dev = model.device
     prompts = torch.as_tensor(prompts, device=dev).long()
     B, S = prompts.shape
+    batch, prefix = {"tokens": prompts}, 0
+    if model.cfg.family == "vlm":
+        if patches is None:
+            raise ValueError("serving a vlm needs its patches")
+        batch["patches"] = torch.as_tensor(patches, device=dev)
+        prefix = model.cfg.n_patches
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=S + n_tokens)
+    logits, cache = model.prefill(params, batch, max_len=S + n_tokens)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     _sync(dev)
     run = Generation(tokens=tok, prefill_ms=(time.perf_counter() - t0) * 1e3,
@@ -75,7 +91,8 @@ def generate(model, params, prompts, n_tokens: int, *, stream: bool = False,
     t0 = time.perf_counter()
     for t in range(n_tokens - 1):
         t1 = time.perf_counter()
-        logits, cache = model.decode_step(params, {"tokens": tok, "pos": S + t,
+        logits, cache = model.decode_step(params, {"tokens": tok,
+                                                   "pos": prefix + S + t,
                                                    "cache": cache})
         tok = torch.argmax(logits[:, -1:], dim=-1)
         if stream:
@@ -118,7 +135,9 @@ def main(argv=None):
 
     for req in range(args.requests):
         prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen)
-        run = generate(model, params, prompts, T)
+        patches = (torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen) * 0.02
+                   if cfg.family == "vlm" else None)
+        run = generate(model, params, prompts, T, patches=patches)
         print(f"req {req}: prefill {run.prefill_ms:.0f} ms | decode {T} toks "
               f"{run.decode_ms:.0f} ms ({run.decode_ms / max(T - 1, 1):.1f} ms/tok) | "
               f"sample {run.tokens[0, :8].tolist()}")

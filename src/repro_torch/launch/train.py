@@ -21,9 +21,11 @@ JAX launcher's dry run, is not ported and exits non-zero.
 Scale knobs live in the configs (``repro_torch/configs/<arch>.py``); the
 default ``--reduced`` uses the same ``reduced()`` family transform as the
 tests, so the launcher runs anywhere. ``--arch`` takes every config of
-``repro_torch.configs`` (the dense family, RWKV-6, Zamba2); one the port
-does not have yet (whisper-small, paligemma-3b, the MoE models) exits
-non-zero with a message.
+``repro_torch.configs`` (the dense family, RWKV-6, Zamba2, PaliGemma); one
+the port does not have yet (whisper-small, the MoE models) exits non-zero
+with a message. The elastic loop gives a vlm its patches with each step's
+tokens; the JAX launcher's elastic loop passes the tokens alone, which
+PaliGemma's loss cannot take (``KeyError: 'patches'``).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import numpy as np
 from repro_torch.checkpoint import AsyncCheckpointer
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import ShapeCell
-from repro_torch.data.synthetic import TokenStream, make_train_batch
+from repro_torch.data.synthetic import TokenStream, make_train_batch, stub_inputs
 from repro_torch.elastic import ElasticTrainer
 from repro_torch.models import build_model
 
@@ -94,9 +96,10 @@ def train_elastic(model, cell: ShapeCell, steps: int, *, state=None,
     devices, starting on half of them with a per-device batch of
     ``cell.global_batch // POOL_SIZE``: a join before step ``steps // 3``
     and a leave before step ``2 * steps // 3``, where the pool allows;
-    batches from one ``TokenStream``; checkpoints as in
-    :func:`train_plain`. ``state`` is installed in place of the seeded
-    init."""
+    batches from one ``TokenStream``, with a vlm's patches made as
+    ``make_train_batch`` makes them (``stub_inputs``, seeded with the
+    step); checkpoints as in :func:`train_plain`. ``state`` is installed
+    in place of the seeded init."""
     trainer = ElasticTrainer(model, pool_size=POOL_SIZE,
                              initial=max(2, POOL_SIZE // 2),
                              per_device_batch=max(1, cell.global_batch // POOL_SIZE))
@@ -114,7 +117,8 @@ def train_elastic(model, cell: ShapeCell, steps: int, *, state=None,
             print(f"[elastic] scale-in -> {len(trainer.active)} devices")
         toks = stream.batch(range(i * trainer.global_batch,
                                   (i + 1) * trainer.global_batch))
-        m = trainer.step({"tokens": toks})
+        m = trainer.step({"tokens": toks,
+                          **stub_inputs(model.cfg, trainer.global_batch, seed=i)})
         run.losses.append(m["loss"])
         run.n_active.append(len(trainer.active))
         if i % 5 == 0 or i == steps - 1:

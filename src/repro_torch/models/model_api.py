@@ -1,6 +1,6 @@
 """Model API of the port, from ``repro/models/model_api.py``: the dense
-(GPT-2, TinyLlama, granite, llama3, gemma2), ssm (RWKV-6) and hybrid
-(Zamba2) families.
+(GPT-2, TinyLlama, granite, llama3, gemma2), ssm (RWKV-6), hybrid
+(Zamba2) and vlm (PaliGemma) families.
 
 ``build_model(cfg, device)`` returns a :class:`Model` exposing:
   * ``init(generator)`` → params
@@ -17,15 +17,18 @@
     stand-ins (no memory).
 
 Batch layouts (integer tokens):
-  train:   {"tokens": (B, S+1)}
-  prefill: {"tokens": (B, S)}
+  train:   {"tokens": (B, S+1)} (+ "patches" (B, n_patches, d) for vlm)
+  prefill: {"tokens": (B, S)} (+ "patches" for vlm)
   decode:  {"tokens": (B, 1), "pos": int or 0-d tensor, "cache": tree}
 
 There is no ``use_pallas`` switch: attention, WKV6 and SSD always run the
-port's kernels on CUDA. Serving runs for the dense, ssm and hybrid families
-under ``torch.no_grad()``; the KV caches (dense, and hybrid's one per
-application of its shared block) are written in place. Not ported yet: the
-moe, vlm and encdec families.
+port's kernels on CUDA. Serving runs for the dense, ssm, hybrid and vlm
+families under ``torch.no_grad()``; the KV caches (dense and vlm, and
+hybrid's one per application of its shared block) are written in place.
+The vlm cache holds ``n_patches`` rows more than the text, the patches'; a
+decode step's ``pos`` is the absolute cache row, ``n_patches + S + t`` for
+the t-th step after a prompt of S tokens. Not ported yet: the moe and
+encdec families.
 """
 from __future__ import annotations
 
@@ -43,12 +46,13 @@ from repro_torch.optim import clip_by_global_norm, make_optimizer
 
 AUX_COEF = 0.01
 #: families whose prefill and decode are ported.
-SERVED = ("dense", "ssm", "hybrid")
+SERVED = ("dense", "ssm", "hybrid", "vlm")
 #: family → (init, forward) of the ported families.
 _FAMILIES = {
     "dense": (transformer.init_transformer, transformer.forward),
     "ssm": (rwkv6.init_rwkv6, rwkv6.forward),
     "hybrid": (zamba2.init_zamba2, zamba2.forward),
+    "vlm": (transformer.init_transformer, transformer.forward),
 }
 
 
@@ -89,8 +93,12 @@ class Model:
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        kwargs = {}
+        if cfg.family == "vlm":
+            kwargs["patch_embeds"] = torch.as_tensor(batch["patches"],
+                                                     device=self.device)
         hidden, aux = _family_forward(cfg)(cfg, params, inputs,
-                                           return_hidden=True)
+                                           return_hidden=True, **kwargs)
         loss = L.chunked_cross_entropy(params["embed"], hidden, labels, cfg)
         total = loss + AUX_COEF * aux
         return total, {"loss": loss, "aux_loss": aux}
@@ -130,17 +138,25 @@ class Model:
         """Run the prompt ``batch["tokens"]`` (B, S) from an empty cache →
         (last-position logits (B, 1, V), cache). The dense and hybrid KV
         caches hold ``max_len`` positions (default S, as in the JAX
-        package, which leaves no room to decode); the ssm state has no
-        length."""
+        package, which leaves no room to decode); the vlm one prefills
+        ``batch["patches"]`` (B, n_patches, d) in front of the prompt and
+        holds ``max_len + n_patches`` rows (default S + n_patches, as in
+        JAX); the ssm state has no length."""
         self._served()
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         B, S = tokens.shape
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
+            kwargs, prefix = {}, 0
+            if cfg.family == "vlm":
+                prefix = cfg.n_patches
+                kwargs["patch_embeds"] = torch.as_tensor(batch["patches"],
+                                                         device=self.device)
             cache = transformer.make_cache(cfg, B, S if max_len is None else max_len,
-                                           device=self.device)
+                                           device=self.device, prefix=prefix)
             logits, cache, _ = transformer.forward(cfg, params, tokens, cache=cache,
-                                                   cache_pos=0, last_only=True)
+                                                   cache_pos=0, last_only=True,
+                                                   **kwargs)
             return logits, cache
         if cfg.family == "hybrid":
             state = zamba2.make_state(cfg, B, S if max_len is None else max_len,
@@ -160,12 +176,13 @@ class Model:
         (logits (B, 1, V), cache). A KV cache is written in place at
         ``pos`` and returned; writing past its end raises. The hybrid
         family, as in JAX, takes the position from ``pos``, not from the
-        state. ``pos`` is unused by the ssm family, whose state carries no
-        position."""
+        state. The vlm family's ``pos`` is the absolute cache row, patches
+        included. ``pos`` is unused by the ssm family, whose state carries
+        no position."""
         self._served()
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             logits, cache, _ = transformer.forward(
                 cfg, params, tokens, cache=batch["cache"], cache_pos=batch["pos"])
             return logits, cache
@@ -181,10 +198,14 @@ class Model:
         """Meta-device stand-ins for every model input of this cell."""
         B, S = cell.global_batch, cell.seq_len
         i32 = torch.int32
-        if cell.kind == "train":
-            return {"tokens": torch.empty((B, S + 1), dtype=i32, device="meta")}
-        if cell.kind == "prefill":
-            return {"tokens": torch.empty((B, S), dtype=i32, device="meta")}
+        if cell.kind in ("train", "prefill"):
+            n = S + 1 if cell.kind == "train" else S
+            specs = {"tokens": torch.empty((B, n), dtype=i32, device="meta")}
+            if self.cfg.family == "vlm":
+                specs["patches"] = torch.empty(
+                    (B, self.cfg.n_patches, self.cfg.d_model),
+                    dtype=torch.bfloat16, device="meta")
+            return specs
         return {"tokens": torch.empty((B, 1), dtype=i32, device="meta"),
                 "pos": torch.empty((), dtype=i32, device="meta"),
                 "cache": self.cache_specs(B, S)}
@@ -193,6 +214,9 @@ class Model:
         self._served()
         if self.cfg.family == "dense":
             return transformer.cache_specs(self.cfg, batch, max_len)
+        if self.cfg.family == "vlm":
+            return transformer.cache_specs(self.cfg, batch, max_len,
+                                           prefix=self.cfg.n_patches)
         if self.cfg.family == "hybrid":
             return zamba2.state_specs(self.cfg, batch, max_len)
         return rwkv6.state_specs(self.cfg, batch)

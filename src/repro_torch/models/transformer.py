@@ -14,8 +14,14 @@ Gemma2's local/global alternation is a per-layer Python ``bool``
 global. Where the JAX package scans a traced flag, which keeps gemma2 off
 its Pallas path, every layer here reaches the attention kernel.
 
-Not ported yet: MoE layers and the prefix-LM wrapper (``patch_embeds``,
-the cache's ``prefix`` rows).
+The prefix-LM wrapper (PaliGemma, the vlm family): ``patch_embeds`` (B, P,
+d) go in front of the token embeddings, the mask is ``prefix`` (the P
+patch rows attend to each other both ways, the text causally to all), and
+RoPE positions and the KV cache's rows count the prefix (``make_cache``'s
+``prefix``). The prefill writes rows ``0 … P + S - 1``; a decode step's
+position is the absolute cache row.
+
+Not ported yet: MoE layers.
 """
 from __future__ import annotations
 
@@ -90,17 +96,21 @@ def forward(cfg, params, tokens, *, patch_embeds=None, cache=None,
       ``cache_pos`` is 0 → (logits, cache, aux).
     Decode: tokens (B, 1), ``cache_pos`` the write position → the same.
     The cache is written in place and returned as the same dict.
+    ``patch_embeds`` (B, P, d): a prefix in front of the tokens (vlm),
+    bidirectional among itself; the outputs cover the tokens only.
     ``last_only`` keeps the last position's logits only."""
-    if patch_embeds is not None:
-        raise NotImplementedError("the prefix-LM (vlm) path is not ported yet")
     if cache is not None and cache_pos is None:
         raise ValueError("cache requires cache_pos")
     B, S = tokens.shape
+    prefix = 0 if patch_embeds is None else patch_embeds.shape[1]
     offset = 0 if cache is None else int(cache_pos)
-    positions = offset + torch.arange(S, device=tokens.device)
-    x = L.embed_tokens(params["embed"], tokens, cfg, positions=positions,
-                       dtype=dtype)
-    spec = MaskSpec(kind="causal", window=cfg.sliding_window, prefix_len=0)
+    positions = offset + torch.arange(S + prefix, device=tokens.device)
+    x = L.embed_tokens(params["embed"], tokens, cfg,
+                       positions=positions[prefix:], dtype=dtype)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(device=x.device, dtype=dtype), x], dim=1)
+    spec = MaskSpec(kind="prefix" if prefix > 0 else "causal",
+                    window=cfg.sliding_window, prefix_len=prefix)
     layers = T.unstack(params["layers"], cfg.n_layers)
     for i, (lp, is_local) in enumerate(zip(layers, _is_local_flags(cfg))):
         if cache is not None:
@@ -113,6 +123,8 @@ def forward(cfg, params, tokens, *, patch_embeds=None, cache=None,
             x = _layer_body(cfg, x, lp, spec, is_local, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    if prefix > 0:
+        x = x[:, prefix:]
     if last_only:
         x = x[:, -1:]
     if return_hidden and cache is None:
@@ -123,13 +135,15 @@ def forward(cfg, params, tokens, *, patch_embeds=None, cache=None,
     return logits, aux
 
 
-def make_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
-    """Zeroed KV cache {"k", "v"} of shape (L, batch, max_len, K, hd)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+def make_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None,
+               prefix=0):
+    """Zeroed KV cache {"k", "v"} of shape (L, batch, max_len + prefix, K,
+    hd): ``prefix`` rows more for a vlm's patches, as in JAX."""
+    shape = (cfg.n_layers, batch, max_len + prefix, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def cache_specs(cfg, batch, max_len, dtype=torch.bfloat16):
+def cache_specs(cfg, batch, max_len, dtype=torch.bfloat16, prefix=0):
     """The cache's shapes and dtypes as meta-device tensors (no memory)."""
-    return make_cache(cfg, batch, max_len, dtype, device="meta")
+    return make_cache(cfg, batch, max_len, dtype, device="meta", prefix=prefix)

@@ -2,7 +2,8 @@
 
 The port's plain attention (the CPU path of ``ops.flash_attention``) is held
 to ``kernels/ref.attention_ref`` and to the Pallas ``flash_attention_kernel``
-(interpret mode) over the JAX kernel sweep, under the JAX tests' ``_tol``;
+(interpret mode) over the JAX kernel sweep and PaliGemma's head dim 256
+under the prefix mask, under the JAX tests' ``_tol``;
 its gradients are held to ``jax.vjp`` of ``blocked_attention``.
 """
 import jax
@@ -32,6 +33,21 @@ ATTN_SWEEP = [
     (1, 256, 256, 8, 2, 64, "causal", 0, 0, 0.0, "bfloat16"),
     (1, 128, 512, 2, 2, 32, "full", 0, 0, 0.0, "float32"),  # cross Skv>Sq
 ]
+#: Head dim 256 (PaliGemma) under the prefix mask, beside the sweep, with
+#: the queries' q_offset: a prefix of 100 (no multiple of the 64-row
+#: blocks), a prefill into a longer cache (Skv > Sq), queries past the
+#: prefix, a window, MQA; bf16 too, and a decode row.
+HD256_PREFIX = [
+    ((1, 128, 128, 4, 1, 256, "prefix", 0, 100, 0.0, "float32"), 0),
+    ((2, 128, 192, 8, 1, 256, "prefix", 0, 100, 0.0, "float32"), 0),
+    ((1, 64, 192, 4, 1, 256, "prefix", 0, 100, 0.0, "float32"), 64),
+    ((1, 128, 128, 2, 1, 256, "prefix", 48, 100, 0.0, "float32"), 0),
+    ((1, 128, 192, 4, 1, 256, "prefix", 0, 100, 0.0, "bfloat16"), 0),
+    ((2, 1, 192, 8, 1, 256, "causal", 0, 0, 0.0, "float32"), 150),
+]
+CASES = [(c, 0) for c in ATTN_SWEEP] + HD256_PREFIX
+CASE_IDS = ([str(i) for i in range(len(ATTN_SWEEP))]
+            + [f"hd256-{i}" for i in range(len(HD256_PREFIX))])
 
 
 def _tol(dtype):
@@ -56,21 +72,22 @@ def _as_torch(x, dtype):
     return torch.from_numpy(x).to(getattr(torch, dtype))
 
 
-@pytest.mark.parametrize("case", ATTN_SWEEP, ids=[str(i) for i in range(len(ATTN_SWEEP))])
-def test_plain_attention_matches_ref_and_pallas_kernel(case):
+@pytest.mark.parametrize("case, q_offset", CASES, ids=CASE_IDS)
+def test_plain_attention_matches_ref_and_pallas_kernel(case, q_offset):
     B, Sq, Skv, H, K, hd, kind, window, prefix, softcap, dtype = case
     q, k, v = _inputs(case)
     scale = 1.0 / np.sqrt(hd)
     jspec = JaxMaskSpec(kind, window=window, prefix_len=prefix)
     jq, jk, jv = (_as_jax(x, dtype) for x in (q, k, v))
     ref = R.attention_ref(jq, jk, jv, jspec, scale=scale, softcap=softcap,
-                          is_local=True if window else None)
+                          q_offset=q_offset, is_local=True if window else None)
     kern = flash_attention_kernel(jq, jk, jv, scale=scale, softcap=softcap,
                                   kind=kind, window=window, prefix_len=prefix,
-                                  block_q=64, block_k=64)
+                                  q_offset=q_offset, block_q=64, block_k=64)
     spec = MaskSpec(kind, window=window, prefix_len=prefix)
     tq, tk, tv = (_as_torch(x, dtype) for x in (q, k, v))
-    out = ops.flash_attention(tq, tk, tv, spec, scale=scale, softcap=softcap)
+    out = ops.flash_attention(tq, tk, tv, spec, scale=scale, softcap=softcap,
+                              q_offset=q_offset)
     assert out.dtype == tq.dtype and out.shape == tq.shape
     out = out.float().numpy()
     np.testing.assert_allclose(out, np.asarray(ref, np.float32), **_tol(dtype))

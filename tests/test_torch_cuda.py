@@ -55,6 +55,13 @@ ATTN_CASES = chip_smoke.attention_cases() + [
      200, 0.0625),
     ("gemma2 global fp32", (1, 80, 300, 4, 2, 128, "causal", 0, 0, 50.0, f32), 1e4,
      200, 0.0625),
+    # Head dim 256: PaliGemma's prefix of 256 into a longer, ragged cache in
+    # fp32 (its fp32 serving check), and a bf16 decode row at MQA 8:1 over a
+    # ragged cache.
+    ("hd 256 prefix fp32", (2, 300, 400, 8, 1, 256, "prefix", 0, 256, 0.0, f32), 1e4,
+     0, None),
+    ("hd 256 decode bf16", (3, 1, 777, 8, 1, 256, "causal", 0, 0, 0.0, bf16), 1e4,
+     700, None),
 ]
 WKV_CASES = chip_smoke.wkv6_cases() + [
     ("ragged S", (1, 100, 3, 16, (-1.0, 0.5), f32, True, 64, False)),
@@ -277,8 +284,9 @@ def test_profile_reader_matches_key_averages(gen):
 
 
 #: the served archs, reduced: the serving runs' (GPT-2, RWKV-6, Zamba2,
-#: TinyLlama), the dense configs the card runs only reduced (granite,
-#: llama3), and gemma2 (window 8: its local and global layers differ).
+#: TinyLlama, PaliGemma), the dense configs the card runs only reduced
+#: (granite, llama3), and gemma2 (window 8: its local and global layers
+#: differ).
 SERVE_ARCHS = chip_smoke.SERVE_PATHS + chip_smoke.REDUCED_DENSE + ("gemma2-27b",)
 #: and Zamba2 at 5 blocks: 3 applications of the shared block (the reduced
 #: config has one), a ragged last segment.
@@ -286,8 +294,9 @@ SERVE_CASES = SERVE_ARCHS + ("zamba2-1.2b, 5 blocks",)
 
 
 def _served(case):
-    """The reduced config of ``case``, its params (seeded) and tokens: a
-    64-token prompt and ``FP32_DECODE_STEPS`` more."""
+    """The reduced config of ``case``, its params (seeded), tokens (a
+    64-token prompt and ``FP32_DECODE_STEPS`` more) and a vlm's patches
+    (None for the other families)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -298,7 +307,8 @@ def _served(case):
     params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, size=(2, 64 + chip_smoke.FP32_DECODE_STEPS))).cuda()
-    return cfg, params, tokens
+    patches = chip_smoke.patches_for(cfg, 2, np.random.default_rng(1))
+    return cfg, params, tokens, None if patches is None else torch.from_numpy(patches).cuda()
 
 
 @pytest.mark.parametrize("case", SERVE_CASES)
@@ -307,12 +317,16 @@ def test_serve_fp32_cached_matches_cache_free(gen, case):
     fp32 prefill and forced decode steps through the kernels against the
     cache-free fp32 forward, within ``serve_tol``, and each planted fault
     outside it."""
-    cfg, params, tokens = _served(case)
+    cfg, params, tokens, patches = _served(case)
+    # A vlm's cache holds no spare row, so that one made without the
+    # patches' rows overflows (its planted fault).
+    cache_len = 64 + chip_smoke.FP32_DECODE_STEPS if patches is not None else 80
     ops.reset_launches()
-    out = chip_smoke.serve_fp32_check(cfg, params, tokens, 64, 80)
+    out = chip_smoke.serve_fp32_check(cfg, params, tokens, 64, cache_len,
+                                      patches=patches)
     assert out["outside"] == 0
     assert set(out["faults"]) == set(chip_smoke.serve_faults(cfg))
-    assert all(f["outside"] > 0 for f in out["faults"].values())
+    assert all("raised" in f or f["outside"] > 0 for f in out["faults"].values())
     for name, n in chip_smoke.serve_launches(cfg, 1).items():
         assert (ops.launches[name] > 0) == (n > 0), name
 
@@ -337,16 +351,18 @@ CARD_CPU_CASES = [(c, d) for c in SERVE_CASES for d in (f32, bf16)
                   if not (d == bf16 and c in BF16_PROBABILITIES)]
 
 
-def _card_against_cpu(cfg, params, tokens, dtype, plain=()):
+def _card_against_cpu(cfg, params, tokens, patches, dtype, plain=()):
     """Forced serving on the card (the kernels in ``plain`` run as their
     plain versions) against the CPU's plain versions, within ``serve_tol``."""
     on_card = ops._on_card
     ops._on_card = lambda t, what: False if what in plain else on_card(t, what)
     try:
-        card = chip_smoke.serve_forced(cfg, params, tokens, 64, 80, dtype)
+        card = chip_smoke.serve_forced(cfg, params, tokens, 64, 80, dtype,
+                                       patches=patches)
     finally:
         ops._on_card = on_card
-    cpu = chip_smoke.serve_forced(cfg, _cpu(params), tokens.cpu(), 64, 80, dtype)
+    cpu = chip_smoke.serve_forced(cfg, _cpu(params), tokens.cpu(), 64, 80, dtype,
+                                  patches=None if patches is None else patches.cpu())
     torch.testing.assert_close(card.cpu().float(), cpu.float(),
                                **chip_smoke.serve_tol(cfg, dtype))
 
@@ -383,16 +399,20 @@ def test_serve_launches_each_layer_once_per_step(gen, arch):
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     prompts = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device="cuda")
+    patches = chip_smoke.patches_for(cfg, 2, np.random.default_rng(1))
+    patches = None if patches is None else torch.from_numpy(patches).cuda()
     ops.reset_launches()
-    run = generate(model, params, prompts, 5, stream=True)
+    run = generate(model, params, prompts, 5, patches=patches, stream=True)
     assert ops.launches == chip_smoke.serve_launches(cfg, 5)
     assert run.tokens.shape == (2, 5) and len(run.step_ms) == 4
-    window = generate(model, params, prompts, 5)
+    window = generate(model, params, prompts, 5, patches=patches)
     assert torch.equal(window.tokens, run.tokens) and window.step_ms == []
     if cfg.family != "ssm":
-        _, cache = model.prefill(params, {"tokens": prompts}, max_len=16)
+        batch = {"tokens": prompts, "patches": patches}
+        _, cache = model.prefill(params, batch, max_len=16)
+        end = 16 + chip_smoke.prefix_rows(cfg)
         with pytest.raises(ValueError, match="KV cache overflow"):
-            model.decode_step(params, {"tokens": run.tokens[:, :1], "pos": 16,
+            model.decode_step(params, {"tokens": run.tokens[:, :1], "pos": end,
                                        "cache": cache})
 
 

@@ -514,6 +514,65 @@ def test_jax_reference_clamps_a_decode_past_the_cache():
     assert not np.array_equal(after[:, :, 7], before[:, :, 7])
 
 
+def test_jax_vlm_decode_at_s_plus_t_overwrites_a_prefilled_row():
+    """(d) The JAX serving launcher decodes the vlm family at ``pos = S +
+    t`` (``repro/launch/serve.py``), where its prefill wrote rows ``0 …
+    n_patches + S - 1``: on reduced PaliGemma (fp32, the XLA path) the
+    first step overwrites the K/V of a prefilled row, and the steps'
+    logits leave fp32 ``_tol`` of the cache-free forward over patches and
+    tokens, where decoding at ``n_patches + S + t`` (the port's position)
+    stays within it (a reference fault, ROADMAP Queue 3)."""
+    jcfg = jax_get_config("paligemma-3b").reduced()
+    jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(3))
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, jcfg.vocab, (B, S + DECODE)).astype(np.int32)
+    patches = jnp.asarray(0.02 * rng.standard_normal((B, jcfg.n_patches, jcfg.d_model)),
+                          jnp.float32)
+    f32, P = jnp.float32, jcfg.n_patches
+    want, _ = jax_transformer.forward(jcfg, jparams, jnp.asarray(toks),
+                                      patch_embeds=patches, dtype=f32)
+    want = np.asarray(want)[:, S:]
+
+    def served(decode_at):
+        cache = jax_transformer.make_cache(jcfg, B, S + DECODE, f32, prefix=P)
+        _, cache, _ = jax_transformer.forward(
+            jcfg, jparams, jnp.asarray(toks[:, :S]), patch_embeds=patches,
+            cache=cache, cache_pos=jnp.zeros((), jnp.int32), dtype=f32)
+        prefilled = np.asarray(cache["k"])
+        out = []
+        for t in range(DECODE):
+            logits, cache, _ = jax_transformer.forward(
+                jcfg, jparams, jnp.asarray(toks[:, S + t:S + t + 1]), cache=cache,
+                cache_pos=jnp.asarray(decode_at(t), jnp.int32), dtype=f32)
+            out.append(np.asarray(logits)[:, 0])
+            if t == 0:
+                first = np.asarray(cache["k"])
+        return np.stack(out, axis=1), prefilled, first
+
+    t32 = cs.tol(torch.float32)
+    got, _, _ = served(lambda t: P + S + t)
+    np.testing.assert_allclose(got, want, **t32)
+    got, prefilled, first = served(lambda t: S + t)  # the JAX launcher's
+    assert S < P + S  # row S holds the prompt's token S - n_patches
+    assert np.abs(prefilled[:, :, S]).max() > 0
+    assert not np.array_equal(first[:, :, S], prefilled[:, :, S])
+    outside = np.abs(got - want) > t32["atol"] + t32["rtol"] * np.abs(want)
+    assert outside.sum() > 0
+
+
+def test_jax_elastic_launcher_passes_tokens_only():
+    """(d) The JAX launcher's elastic loop hands ``ElasticTrainer.step``
+    the tokens alone (``repro/launch/train.py``), so PaliGemma's loss fails
+    on the missing patches (a reference fault, ROADMAP Queue 3); the port's
+    elastic loop passes them (tests/test_torch_vlm.py)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-m", "repro.launch.train", "--arch",
+                          "paligemma-3b", "--elastic", "--steps", "3"],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0
+    assert "KeyError: 'patches'" in out.stderr
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_size_specs_match_jax(arch):
     """(e) Full-size ``cache_specs`` and the decode cell's ``input_specs``

@@ -3,12 +3,15 @@
 one NVIDIA GPU.
 
     python3 tools/tinyllama_fp32_drift.py [--arch gemma2-27b --layers 2 \
-        --batch 2 --prompt 4608 --tokens 64]
+        --batch 2 --prompt 4608 --tokens 64] [--arch paligemma-3b]
 
-TinyLlama 1.1B at full width and depth (or another dense config, its depth
-cut to ``--layers``), as ``chip_smoke.py``'s fp32 serving check runs it
-(params from the port's init, seeded; batch 8, a 1024-token prompt and 7
-forced tokens, a cache of 1152, fp32 activations and caches):
+TinyLlama 1.1B at full width and depth (or another dense or vlm config,
+its depth cut to ``--layers``), as ``chip_smoke.py``'s fp32 serving check
+runs it (params from the port's init, seeded; batch 8, a 1024-token prompt
+and 7 forced tokens, a cache of 1152, fp32 activations and caches; a vlm's
+``chip_smoke.patches_for`` patches in front of every forward, its cache
+and positions shifted by their rows, which the row counts below leave
+out):
 
 (a) at the first decode step (position 1024), the residual stream after
     every layer and the logits, cached (the prefill, then one decode step)
@@ -49,6 +52,7 @@ import json
 import pathlib
 import sys
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -57,6 +61,8 @@ sys.path.insert(0, str(ROOT / "src"))
 B, PROMPT, FORCED = 8, 1024, 7
 CACHE = PROMPT + 128
 F32 = torch.float32
+#: a vlm's patch embeddings (B, n_patches, d) on the card, None otherwise.
+PATCHES = None
 
 
 def _chip_smoke():
@@ -88,10 +94,15 @@ def _plain_attention(plain):
     return ctx()
 
 
+def _kw():
+    return {} if PATCHES is None else {"patch_embeds": PATCHES}
+
+
 def first_step(cfg, params, tokens, plain):
     """(a): each layer's output at position 1024, cached against cache-free."""
     from repro_torch.models import transformer
 
+    pre = 0 if PATCHES is None else PATCHES.shape[1]
     seen = []
     body = transformer._layer_body
 
@@ -101,18 +112,18 @@ def first_step(cfg, params, tokens, plain):
         return out
 
     with torch.no_grad(), _plain_attention(plain):
-        cache = transformer.make_cache(cfg, B, CACHE, F32, tokens.device)
+        cache = transformer.make_cache(cfg, B, CACHE, F32, tokens.device, prefix=pre)
         transformer.forward(cfg, params, tokens[:, :PROMPT], cache=cache, cache_pos=0,
-                            last_only=True, dtype=F32)
+                            last_only=True, dtype=F32, **_kw())
         transformer._layer_body = body_seen
         try:
             cached_logits, _, _ = transformer.forward(
                 cfg, params, tokens[:, PROMPT:PROMPT + 1], cache=cache,
-                cache_pos=PROMPT, dtype=F32)
+                cache_pos=pre + PROMPT, dtype=F32)
             cached = seen[:]
             seen.clear()
             free_logits, _ = transformer.forward(cfg, params, tokens[:, :PROMPT + 1],
-                                                 dtype=F32)
+                                                 dtype=F32, **_kw())
             free = seen[:]
         finally:
             transformer._layer_body = body
@@ -126,8 +137,9 @@ def no_cache_control(cfg, params, tokens, plain):
     from repro_torch.models import transformer
 
     with torch.no_grad(), _plain_attention(plain):
-        short, _ = transformer.forward(cfg, params, tokens[:, :PROMPT + 1], dtype=F32)
-        long, _ = transformer.forward(cfg, params, tokens, dtype=F32)
+        short, _ = transformer.forward(cfg, params, tokens[:, :PROMPT + 1], dtype=F32,
+                                       **_kw())
+        long, _ = transformer.forward(cfg, params, tokens, dtype=F32, **_kw())
     return {"plain_attention": plain, **_diff(short[:, PROMPT], long[:, PROMPT])}
 
 
@@ -190,17 +202,17 @@ def fp32_check(cs, cfg, params, tokens, plain, padded=""):
     from repro_torch.models import transformer
 
     n_out = tokens.shape[1] - PROMPT + 1
+    rows = tokens.numel() + (0 if PATCHES is None else PATCHES.shape[:2].numel())
     with torch.no_grad(), _plain_attention(plain):
         hidden, _ = transformer.forward(cfg, params, tokens, return_hidden=True,
-                                        dtype=F32)
+                                        dtype=F32, **_kw())
         want = L.unembed(params["embed"], hidden[:, PROMPT - 1:], cfg)
         with contextlib.ExitStack() as pads:
             if padded:
-                pads.enter_context(_padded_products(tokens.numel(), B * n_out,
-                                                    cfg.vocab))
+                pads.enter_context(_padded_products(rows, B * n_out, cfg.vocab))
             if "norms" in padded:
-                pads.enter_context(_padded_norms(tokens.numel()))
-            got = cs.serve_forced(cfg, params, tokens, PROMPT, CACHE)
+                pads.enter_context(_padded_norms(rows))
+            got = cs.serve_forced(cfg, params, tokens, PROMPT, CACHE, patches=PATCHES)
     t = cs.tol(F32)
     d = (got - want).abs()
     return {"plain_attention": plain, "padded_products": padded,
@@ -233,7 +245,7 @@ def gemm_rows(params):
 
 
 def main(argv=None):
-    global B, PROMPT, CACHE
+    global B, PROMPT, CACHE, PATCHES
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--layers", type=int, default=0, help="cut depth (0: full)")
@@ -264,6 +276,8 @@ def main(argv=None):
     tokens = torch.cat([torch.randint(0, cfg.vocab, (B, PROMPT), generator=host),
                         torch.randint(0, cfg.vocab, (B, FORCED), generator=host)],
                        dim=1).cuda()
+    patches = cs.patches_for(cfg, B, np.random.default_rng(1))
+    PATCHES = None if patches is None else torch.from_numpy(patches).cuda()
 
     result = {"config": cfg.name, "n_layers": cfg.n_layers, "batch": B,
               "prompt": PROMPT, "cache": CACHE, "first_step": [],
