@@ -17,7 +17,8 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    48:1 and llama3's 128:8 at full width; WKV6 at S 1 to 33 from a state)
    PaliGemma's prefix mask over 256 patches at head dim 256, MQA 8:1, in
    training, the serving prefill and decode, and fp32 and bf16 cases at
-   head dim 256) and over the JAX kernel sweeps; the many-leaf encode and decode (one
+   head dim 256; Arctic's GQA 56:8 at head dim 128 in training, the serving
+   prefill and decode) and over the JAX kernel sweeps; the many-leaf encode and decode (one
    launch per state) bit for bit against the per-leaf plain versions, the
    decode over all of GPT-2's fp32 leaf shapes and a ragged set; adamw8bit's
    block quantizer on TinyLlama's embedding bit for bit as on the CPU;
@@ -31,7 +32,12 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    attention at GQA 32:4) and PaliGemma 3B at full width on
    ``PALIGEMMA_LAYERS`` of its 18 layers (``paligemma_cut``; codec, flash
    attention at hd 256 under the prefix mask, 1024 text tokens behind 256
-   seeded patch embeddings per row); each path's full state encoded by the many-leaf kernel bit
+   seeded patch embeddings per row) and Snowflake Arctic (moe) at full
+   width on a cut of ``ARCTIC_LAYERS`` layers of ``ARCTIC_EXPERTS``
+   experts, top-2, the dense residual, adamw8bit (``arctic_cut``; codec on
+   the (L, E, d, ff) expert leaves, flash attention at GQA 56:8), each
+   step's aux loss and the first step's dropped (token, choice) pairs per
+   MoE call printed; each path's full state encoded by the many-leaf kernel bit
    for bit as the per-leaf plain encode; one scale-out's phases timed apart
    on the trainer's state (plan, encode, decode, round-trip check), the
    decoded state bit for bit as the per-leaf plain decode; one profiled
@@ -61,7 +67,8 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    3B at full width and depth through the serving launcher's ``generate``
    (``Model.prefill``, ``Model.decode_step``): batch 8, a 1024-token
    prompt, 128 greedy new tokens, a cache of 1152 positions (PaliGemma:
-   256 seeded patch embeddings in front, 1408 rows), bf16; and
+   256 seeded patch embeddings in front, 1408 rows), bf16; Arctic on its
+   training cut (``arctic_cut``), the same request; and
    gemma2-27b at full width on 2 layers (one local, one global), batch 2,
    a 4,608-token prompt (so that the window of 4,096 binds), 64 new
    tokens; launches held to the exact
@@ -82,7 +89,12 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    slot off, RoPE from position 0 at decode; PaliGemma: the cache written
    one slot off, decoding at the JAX launcher's ``S + t``, the causal mask
    on the cached prefill, and a cache without the patches' rows, which
-   must raise) that must fail that check;
+   must raise; Arctic: the dense family's) that must fail that check; for
+   Arctic the check counts the (token, choice) pairs each MoE call drops
+   past its experts' capacity on both sides (a prefill, a decode step and
+   the cache-free forward each have their own capacity), leaves out every
+   batch row that dropped a pair on either side and fails if none is
+   left;
 3e. granite-34b and llama3-405b, which fit no card, reduced: 2 steps
    under ``ElasticTrainer`` with the int8 codec, a scale-out that leaves
    the state bit-unchanged (llama3's adamw8bit codes ship raw, their fp32
@@ -102,9 +114,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    ``scaled_dot_product_attention`` where it computes the same function:
    it has no softcap), WKV6 and SSD as device time per launch, one input
    set per layer (per application of Zamba2's shared block); attention
-   at PaliGemma's training shape (prefix 256, hd 256) beside SDPA with
-   the prefix mask as an explicit boolean mask (a ``kernel_train_shape``
-   line);
+   at PaliGemma's training shape (prefix 256, hd 256) and Arctic's
+   (causal, GQA 56:8, hd 128; also its serving prefill into the cache of
+   1152) beside SDPA with the mask as an explicit boolean mask (a
+   ``kernel_train_shape`` line);
 6. the simulator substrate (``repro_torch.core``: topology on a stdlib
    graph, the event simulator, the cluster monitor, the negotiation
    protocols, the baselines), host Python that launches no kernel:
@@ -254,23 +267,25 @@ SSD_BF16_EDGES = [
 ]
 # The main paths, one per trained family, and their steps: before the
 # scale-out (2 logical devices), between it and the scale-in (3), after (2).
-PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b", "paligemma-3b"]
+PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b", "paligemma-3b",
+         "arctic-480b"]
 STEPS = (3, 2, 2)
 # PaliGemma's path runs at per-device batch 2 (global batch 4, then 6):
 # at 12 rows its loss over the 257,216-token vocabulary holds about five
 # fp32 logits-sized buffers of 12.6 GB at once, and ran out of the card's
-# memory at every depth tried, 6 to 18 layers (tools/paligemma_memory.py).
+# memory at every depth tried, 6 to 18 layers (tools/cut_memory.py).
 PATH_PER_DEVICE_BATCH = {"paligemma-3b": 2}
 # The main paths that run with the caching allocator's expandable segments.
 # PaliGemma's allocates state-sized blocks (the scale-out's decoded copy, 23
 # GB at 14 layers) after steps whose logits buffers leave fixed segments cut
 # up: the decode then ran out of memory with 10-21 GB reserved but
-# unallocated (tools/paligemma_memory.py).
+# unallocated (tools/cut_memory.py).
 EXPANDABLE_SEGMENTS = ("paligemma-3b",)
 # The serving runs (phase 3d), one per served family at full width and
 # depth: batch 8, a 1024-token prompt, 128 greedy new tokens (the prefill's
 # and 127 decode steps'), and so a cache of 1152 positions.
-SERVE_PATHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b", "paligemma-3b")
+SERVE_PATHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b", "paligemma-3b",
+               "arctic-480b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 128
 SERVE_CACHE = SERVE_PROMPT + SERVE_TOKENS
 # gemma2-27b served at full width on a cut depth: one local (window 4,096)
@@ -286,6 +301,20 @@ GEMMA2_BATCH, GEMMA2_PROMPT, GEMMA2_TOKENS = 2, 4608, 64
 # full width and depth.
 PATCH_SCALE = 0.02
 PALIGEMMA_LAYERS = 14
+# Snowflake Arctic (moe) trains and serves at full width (d_model 7,168,
+# 56:8 heads at hd 128, experts and the dense residual 4,864 wide, top-2,
+# capacity factor 1.25) on a cut of ARCTIC_LAYERS layers of ARCTIC_EXPERTS
+# experts (``arctic_cut``). One full layer's 128 experts are 13.4 B params
+# (53.5 GB fp32); the port keeps fp32 master weights and adamw8bit's state,
+# as JAX does, about 6.03 bytes a param. 2 x 8 is 2.58 B params and a 15.5
+# GB state; its train step peaks at 59.7 GB (the fp32 gradients, their
+# clipped copy, the updates and the largest leaf's dequantised moments
+# beside the state) and its replica tier at 46.7 GB. 3 x 8 (3.64 B params,
+# 21.9 GB of state) ran out of the card's memory in its first step's
+# optimizer update, at 72.4 GiB allocated (tools/cut_memory.py --arch
+# arctic-480b, PERF.md §4); 2 x 16 (4.25 B) is larger still.
+ARCTIC_LAYERS = 2
+ARCTIC_EXPERTS = 8
 # The dense configs that fit no card, run reduced (phase 3e): a short
 # elastic run with one int8 scale-out and a served request each.
 REDUCED_DENSE = ("granite-34b", "llama3-405b")
@@ -505,7 +534,7 @@ def main_shapes():
         cfg = path_config(name)
         prefix = prefix_rows(cfg)
         for B in path_batches(name):
-            if cfg.family in ("dense", "hybrid", "vlm"):
+            if cfg.family in ("dense", "hybrid", "vlm", "moe"):
                 theta = cfg.rope_theta if cfg.positions == "rope" else 0.0
                 shapes["flash_attention"].append((name, (
                     B, SEQ + prefix, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -527,6 +556,18 @@ def gemma2_cut():
     from repro_torch.configs import get_config
 
     return dataclasses.replace(get_config("gemma2-27b"), n_layers=GEMMA2_LAYERS)
+
+
+def arctic_cut():
+    """arctic-480b at full width on ``ARCTIC_LAYERS`` layers of
+    ``ARCTIC_EXPERTS`` experts, ``top_k`` kept (a config chosen here, not an
+    option of the port)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("arctic-480b"), n_layers=ARCTIC_LAYERS,
+                               n_experts=ARCTIC_EXPERTS)
 
 
 def paligemma_cut():
@@ -568,11 +609,20 @@ def path_batches(name):
 
 
 def path_config(name):
-    """The config the main path ``name`` trains: PaliGemma's cut, the full
-    config otherwise."""
+    """The config the main path ``name`` trains: PaliGemma's and Arctic's
+    cuts, the full config otherwise."""
     from repro_torch.configs import get_config
 
-    return paligemma_cut() if name == "paligemma-3b" else get_config(name)
+    cuts = {"paligemma-3b": paligemma_cut, "arctic-480b": arctic_cut}
+    return cuts[name]() if name in cuts else get_config(name)
+
+
+def serve_config(name):
+    """The config the serving run ``name`` serves: Arctic's cut, the full
+    config otherwise (PaliGemma is served at full depth)."""
+    from repro_torch.configs import get_config
+
+    return arctic_cut() if name == "arctic-480b" else get_config(name)
 
 
 def prefix_rows(cfg):
@@ -602,10 +652,9 @@ def path_batch(cfg, toks, rng):
 
 def serve_runs():
     """``(label, cfg, batch, prompt, new tokens)`` of each serving run
-    (phase 3d): ``SERVE_PATHS`` at full width and depth, then gemma2's cut."""
-    from repro_torch.configs import get_config
-
-    return ([(name, get_config(name), SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS)
+    (phase 3d): ``SERVE_PATHS`` at full width and depth (Arctic on its
+    cut), then gemma2's cut."""
+    return ([(name, serve_config(name), SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS)
              for name in SERVE_PATHS]
             + [(f"gemma2-27b, {GEMMA2_LAYERS} layers", gemma2_cut(), GEMMA2_BATCH,
                 GEMMA2_PROMPT, GEMMA2_TOKENS)])
@@ -647,7 +696,7 @@ def serve_attention_cases():
              for name, B in FULL_WIDTH_ATTENTION]
     cases = []
     for label, cfg, B, P, cache_len in runs:
-        if cfg.family not in ("dense", "hybrid", "vlm"):
+        if cfg.family not in ("dense", "hybrid", "vlm", "moe"):
             continue
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         theta = cfg.rope_theta if cfg.positions == "rope" else 0.0
@@ -960,7 +1009,7 @@ def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1):
     n = dict.fromkeys(ops.launches, 0)
     n["shard_encode"] = scale_outs if n_coded_leaves else 0
     n["shard_decode"] = scale_outs if n_coded_leaves else 0
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe"):
         n["flash_attention"] = per_layer
     elif cfg.family == "ssm":
         n["wkv6"] = per_layer
@@ -1007,16 +1056,30 @@ def main_path(ops, name):
         f"{cfg.d_model}, {n_params} params; state {manifest.total_bytes} "
         f"bytes in {len(manifest.entries)} leaves), seq {SEQ}{patches}, "
         f"per-device batch {per_device}, int8 codec")
-    losses = []
+    losses, aux_losses, drops = [], [], []
 
     def steps(n):
         for _ in range(n):
             toks = np.concatenate([loader.next_batch(i)
                                    for i in trainer.device_ids()])
-            m = trainer.step(batch_of(toks))
+            # An MoE path's first step counts each MoE call's dropped pairs.
+            count = cfg.is_moe and not drops
+            with moe_drops(len(toks)) if count else contextlib.nullcontext() as seen:
+                m = trainer.step(batch_of(toks))
             losses.append(m["loss"])
+            aux_losses.append(m["aux_loss"])
+            aux = f" aux_loss {m['aux_loss']:.6f}" if cfg.is_moe else ""
             log(f"  step {trainer.step_count} on {len(trainer.active)} "
-                f"devices: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f}")
+                f"devices: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f}{aux}")
+            if count:
+                from repro_torch.models import moe
+
+                drops.extend(dropped_pairs(seen))
+                C = moe._capacity(len(toks) * SEQ, cfg)
+                log(f"  dropped (token, choice) pairs of each MoE call of that "
+                    f"step (the forward's {cfg.n_layers} layers, then the remat "
+                    f"recompute's): {drops}, of {len(toks) * SEQ * cfg.top_k} "
+                    f"pairs a call; capacity {C} for each of {cfg.n_experts} experts")
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1051,8 +1114,8 @@ def main_path(ops, name):
 
     if not unchanged:
         raise AssertionError(f"{name}: scale-out changed the training state")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if not all(math.isfinite(x) for x in losses + aux_losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}, aux {aux_losses}")
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
     check_encode_many(codec_module, [leaf for leaf in T.leaves(trainer.state)
@@ -1072,6 +1135,8 @@ def main_path(ops, name):
         "n_params": n_params,
         "state_bytes": manifest.total_bytes,
         "losses": losses,
+        "aux_losses": aux_losses,
+        "moe_dropped_pairs_first_step": drops,
         "step_ms": {n: [t * 1e3 for t in ts] for n, ts in
                     trainer.metrics_snapshot()["step_times"].items()},
         "scale_out_ms": ev_out.wall_s * 1e3,
@@ -1743,13 +1808,13 @@ FP32_SUMS_BY_ROWS = ("tinyllama-1.1b", "paligemma-3b")
 
 def serve_tol(cfg, dtype):
     """The fixed tolerance of a serving check, tests/test_kernels.py's own:
-    ``_tol`` for the dense and vlm families (attention); ``_rec_tol`` for the ssm and
+    ``_tol`` for the dense, vlm and moe families (attention); ``_rec_tol`` for the ssm and
     hybrid families, whose decode runs WKV6 or SSD one step per launch
     where the cache-free forward runs every step in one launch, so their
     fp32 sums come in another order, and for the dense configs of
     ``FP32_SUMS_BY_ROWS``, whose fp32 sums come in another order at a
     decode step's row count."""
-    if cfg.family in ("dense", "vlm") and cfg.name not in FP32_SUMS_BY_ROWS:
+    if cfg.family in ("dense", "vlm", "moe") and cfg.name not in FP32_SUMS_BY_ROWS:
         return tol(dtype)
     return rec_tol(dtype)
 
@@ -1779,6 +1844,7 @@ SERVE_FAULTS = {"dense": ("cache written one slot off",
                         "decode at the JAX launcher's S + t",
                         "causal mask on the cached prefill",
                         "cache without the prefix rows")}
+SERVE_FAULTS["moe"] = SERVE_FAULTS["dense"]
 #: Planted faults that make the cached side raise (a KV cache overflow)
 #: instead of giving logits: the check holds them to raising.
 RAISING_FAULTS = ("cache without the prefix rows",)
@@ -1963,7 +2029,7 @@ def serve_forced(cfg, params, tokens, n_prompt, cache_len, dtype=torch.float32,
     B, n = tokens.shape
     pre, first = prefix_rows(cfg), {}
     with torch.no_grad():
-        if cfg.family in ("dense", "vlm"):
+        if cfg.family in ("dense", "vlm", "moe"):
             cache = transformer.make_cache(cfg, B, cache_len, dtype, tokens.device,
                                            prefix=pre)
             if pre:
@@ -1994,6 +2060,50 @@ def serve_forced(cfg, params, tokens, n_prompt, cache_len, dtype=torch.float32,
     return torch.stack(out, dim=1)
 
 
+@contextlib.contextmanager
+def moe_drops(n_rows):
+    """For the duration, counts the (token, choice) pairs each MoE layer
+    call drops past its experts' capacity, from the keeps of
+    ``moe._dispatch_indices`` (wrapped here, as ``planted_fault`` wraps
+    code; the package is not changed). Each call's group is ``n_rows``
+    batch rows of consecutive tokens (``n_groups=1``). Yields a dict whose
+    ``calls`` gets each call's count of dropped pairs (0-d tensors, read
+    after the run, so that no call waits for the device) and whose
+    ``rows`` gets each call's (n_rows,) mask of rows with a dropped pair;
+    ``dropped_pairs(seen)`` and ``dropped_rows(seen)`` read them."""
+    from repro_torch.models import moe
+
+    orig = moe._dispatch_indices
+    seen = {"calls": [], "rows": []}
+
+    def counted(idx, E, C):
+        e, p, keep = orig(idx, E, C)
+        dropped = ~keep.reshape(n_rows, -1)
+        seen["calls"].append(dropped.sum())
+        seen["rows"].append(dropped.any(dim=1))
+        return e, p, keep
+
+    moe._dispatch_indices = counted
+    try:
+        yield seen
+    finally:
+        moe._dispatch_indices = orig
+
+
+def dropped_pairs(seen):
+    """Each call's dropped pairs, as ints, from ``moe_drops``."""
+    return [int(n) for n in seen["calls"]]
+
+
+def dropped_rows(seen, n_rows):
+    """The (n_rows,) bool mask, on the host, of the batch rows that dropped a
+    pair in any call recorded by ``moe_drops``."""
+    rows = torch.zeros(n_rows, dtype=torch.bool)
+    for r in seen["rows"]:
+        rows |= r.cpu()
+    return rows
+
+
 def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len, patches=None):
     """fp32 cached against cache-free logits: ``serve_forced`` against the
     cache-free fp32 forward over all of ``tokens`` (a vlm's behind its
@@ -2001,30 +2111,57 @@ def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len, patches=None):
     ``serve_tol(cfg, fp32)``; then each of ``serve_faults(cfg)`` planted,
     each of which must leave that tolerance, or, for ``RAISING_FAULTS``,
     raise a KV cache overflow. Raises if either fails; returns the
-    errors."""
+    errors.
+
+    An MoE layer's expert capacity depends on how many tokens its call
+    routes: the cache-free forward, the prefill and each decode step have
+    their own, and drop in their own token order, so the two sides compute
+    the same function only where neither drops. The dropped (token,
+    choice) pairs are counted on both sides (``moe_drops``); a batch row
+    with a dropped pair on either side is compared with nothing, and the
+    check fails if no row is left. The faults are held on the rows the
+    check compared. The tolerance is the same for every row."""
     from repro_torch.models import layers as L
     from repro_torch.models.model_api import _family_forward
 
     f32 = torch.float32
+    B = tokens.shape[0]
     kw = {"patch_embeds": patches} if cfg.family == "vlm" else {}
-    with torch.no_grad():
+    with torch.no_grad(), moe_drops(B) as free_drops:
         hidden, _ = _family_forward(cfg)(cfg, params, tokens,
                                          return_hidden=True, dtype=f32, **kw)
         want = L.unembed(params["embed"], hidden[:, n_prompt - 1:], cfg)
     del hidden
     t = serve_tol(cfg, f32)
+    rows = None  # the rows compared, set by the check without a fault
 
     def run(fault):
-        with planted_fault(fault):
+        nonlocal rows
+        with planted_fault(fault), moe_drops(B) as cached_drops:
             got = serve_forced(cfg, params, tokens, n_prompt, cache_len,
                                patches=patches)
-        d = (got - want).abs()
-        return float(d.max()), int((d > t["atol"] + t["rtol"] * want.abs()).sum())
+        if rows is None:
+            rows = ~(dropped_rows(free_drops, B) | dropped_rows(cached_drops, B))
+            drops["cached"] = sum(dropped_pairs(cached_drops))
+        keep = rows.to(want.device)
+        d = (got[keep] - want[keep]).abs()
+        if not d.numel():
+            return 0.0, 0
+        return (float(d.max()),
+                int((d > t["atol"] + t["rtol"] * want[keep].abs()).sum()))
 
+    drops = {"cache_free": sum(dropped_pairs(free_drops))}
     err, bad = run(None)
-    out = {"tolerance": t, "positions": want.shape[1], "n_logits": want.numel(),
+    n_rows = int(rows.sum())
+    out = {"tolerance": t, "positions": want.shape[1],
+           "n_logits": n_rows * want[0].numel(),
            "max_abs_logit": float(want.abs().max()), "max_abs_diff": err,
-           "outside": bad, "faults": {}}
+           "outside": bad, "drops": drops, "rows_compared": n_rows,
+           "rows_left_out": B - n_rows, "faults": {}}
+    if not n_rows:
+        raise AssertionError(f"{cfg.name}: every batch row dropped a (token, "
+                             f"choice) pair on one side ({drops}): no row to "
+                             f"compare")
     if bad:
         raise AssertionError(f"{cfg.name}: fp32 cached logits differ from the "
                              f"cache-free forward by up to {err:.3e}, {bad} "
@@ -2239,6 +2376,12 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
         + "; ".join(f"{k}: raised {v['raised']!r}" if "raised" in v else
                     f"{k} {v['max_abs_diff']:.3e}, {v['outside']} outside"
                     for k, v in fp["faults"].items()))
+    if cfg.is_moe:
+        log(f"  fp32 check, MoE drops: {fp['drops']['cache_free']} dropped "
+            f"(token, choice) pairs in the cache-free forward, "
+            f"{fp['drops']['cached']} in the prefill and decode steps; "
+            f"{fp['rows_left_out']} of {B} batch rows left out, "
+            f"{fp['rows_compared']} compared")
     log(json.dumps({"serving": summary}))
     del params, model, run
     gc.collect()
@@ -2488,9 +2631,11 @@ def time_attention(fa, MaskSpec, gen):
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
-def time_prefix_attention(fa, MaskSpec, gen, name, cfg, B):
-    """The bf16 kernel at a vlm training path's attention shape: batch
-    ``B``, the text (``SEQ``) behind the patches under the prefix mask;
+def time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv=None):
+    """The bf16 kernel at a training path's attention shape: batch ``B``,
+    ``SEQ`` positions (a vlm's text behind its patches, under the prefix
+    mask; causal otherwise) over ``Skv`` keys (default as many; more for a
+    serving prefill into its cache, whose last rows the mask removes);
     beside it the plain version and ``scaled_dot_product_attention`` with
     the same mask as an explicit boolean mask (checked against the plain
     version at ``_tol``). The bound counts the (q, k) pairs the mask
@@ -2500,17 +2645,19 @@ def time_prefix_attention(fa, MaskSpec, gen, name, cfg, B):
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pre = prefix_rows(cfg)
     S = SEQ + pre
+    Skv = S if Skv is None else Skv
+    kind = "prefix" if pre else "causal"
     bf16 = torch.bfloat16
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(bf16)
-    k, v = (torch.randn((B, S, K, hd), generator=gen, device="cuda").to(bf16)
+    k, v = (torch.randn((B, Skv, K, hd), generator=gen, device="cuda").to(bf16)
             for _ in range(2))
     scale = cfg.query_scale or hd ** -0.5
-    spec = MaskSpec("prefix", prefix_len=pre)
-    pos = torch.arange(S, device="cuda")
-    mask = _mask_block(spec, pos, pos)
+    spec = MaskSpec(kind, prefix_len=pre)
+    mask = _mask_block(spec, torch.arange(S, device="cuda"),
+                       torch.arange(Skv, device="cuda"))
 
     def kernel():
-        return fa.flash_attention_kernel(q, k, v, scale=scale, kind="prefix",
+        return fa.flash_attention_kernel(q, k, v, scale=scale, kind=kind,
                                          prefix_len=pre)
 
     def plain():
@@ -2528,8 +2675,8 @@ def time_prefix_attention(fa, MaskSpec, gen, name, cfg, B):
     del want
     pairs = int(mask.sum())
     flops = 4 * B * H * hd * pairs
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)  # q, o; k, v
-    return dict(model=name, shape=[B, S, S, H, K, hd], prefix=pre,
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * Skv * K * hd)  # q, o; k, v
+    return dict(model=name, shape=[B, S, Skv, H, K, hd], mask=kind, prefix=pre,
                 admitted_pairs_per_head=pairs, ms=cuda_ms(kernel, 20),
                 plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 20),
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
@@ -3573,11 +3720,15 @@ def main():
     times["flash_attention"] = time_attention(fa, MaskSpec, gen)
     for name in PATHS:
         cfg = path_config(name)
-        if cfg.family != "vlm":
+        if cfg.family not in ("vlm", "moe"):
             continue
-        # The path's global batch, and the serving runs' batch of 8.
-        for B in sorted({path_batches(name)[0], SERVE_BATCH}):
-            t = time_prefix_attention(fa, MaskSpec, gen, name, cfg, B)
+        # The path's global batch and the serving runs' batch of 8; for
+        # Arctic (GQA 7:1) also the serving prefill into its cache.
+        shapes = [(B, None) for B in sorted({path_batches(name)[0], SERVE_BATCH})]
+        if cfg.family == "moe":
+            shapes.append((SERVE_BATCH, SERVE_CACHE))
+        for B, Skv in shapes:
+            t = time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv)
             bound_ms, bound_by = t.pop("bound")
             log(json.dumps({"kernel_train_shape": "flash_attention", **t,
                             "bound_ms": bound_ms, "bound_by": bound_by}))

@@ -1,6 +1,7 @@
 """Serving demo on the PyTorch port: batched prefill + greedy decode with
 a KV cache (the dense family: TinyLlama, GPT-2, granite, llama3, gemma2;
-PaliGemma, whose cache starts with its image patches' rows),
+PaliGemma, whose cache starts with its image patches' rows; Arctic,
+whose layers route to experts),
 a recurrent state (RWKV-6) or both (Zamba2: a KV cache per application of
 its shared attention block beside the Mamba2 blocks' conv and SSM states),
 the twin of ``examples/serve.py``.

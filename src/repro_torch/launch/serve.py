@@ -1,7 +1,8 @@
 """Serving launcher of the port, from ``repro/launch/serve.py``: batched
 prefill + greedy autoregressive decode with a KV cache (dense: GPT-2,
 TinyLlama, granite, llama3, gemma2; vlm: PaliGemma, whose cache holds the
-image patches' rows before the prompt's), a recurrent state (ssm) or both
+image patches' rows before the prompt's; moe: Arctic), a recurrent state
+(ssm) or both
 (hybrid: one KV cache per application of the shared attention block, and
 each Mamba2 block's conv and SSM states), request after request, with
 per-phase timing.
@@ -15,7 +16,9 @@ flags keep their defaults and meanings, ``--arch`` defaulting to
 unused: decoding is greedy. ``--device`` is the port's own: CUDA unless
 given, and asking for CUDA where there is none raises
 (``repro_torch.device.resolve_device``). An arch the port does not have
-yet (whisper-small, the MoE models) exits non-zero with a message.
+yet (whisper-small, kimi-k2-1t-a32b) exits non-zero with get_config's
+unknown-arch message. Arctic (moe) is served as the dense family is, its
+layers' experts routing each call's tokens as one group.
 
 PaliGemma (``--arch paligemma-3b``) is served with seeded random patch
 embeddings (normals × 0.02, as the training batches make them), where the

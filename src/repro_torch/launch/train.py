@@ -21,9 +21,9 @@ JAX launcher's dry run, is not ported and exits non-zero.
 Scale knobs live in the configs (``repro_torch/configs/<arch>.py``); the
 default ``--reduced`` uses the same ``reduced()`` family transform as the
 tests, so the launcher runs anywhere. ``--arch`` takes every config of
-``repro_torch.configs`` (the dense family, RWKV-6, Zamba2, PaliGemma); one
-the port does not have yet (whisper-small, the MoE models) exits non-zero
-with a message. The elastic loop gives a vlm its patches with each step's
+``repro_torch.configs`` (the dense family, RWKV-6, Zamba2, PaliGemma,
+Arctic); one the port does not have yet (whisper-small, kimi-k2-1t-a32b)
+exits non-zero with get_config's unknown-arch message. The elastic loop gives a vlm its patches with each step's
 tokens; the JAX launcher's elastic loop passes the tokens alone, which
 PaliGemma's loss cannot take (``KeyError: 'patches'``).
 """

@@ -1,6 +1,6 @@
 """Model API of the port, from ``repro/models/model_api.py``: the dense
 (GPT-2, TinyLlama, granite, llama3, gemma2), ssm (RWKV-6), hybrid
-(Zamba2) and vlm (PaliGemma) families.
+(Zamba2), vlm (PaliGemma) and moe (Arctic) families.
 
 ``build_model(cfg, device)`` returns a :class:`Model` exposing:
   * ``init(generator)`` → params
@@ -22,13 +22,18 @@ Batch layouts (integer tokens):
   decode:  {"tokens": (B, 1), "pos": int or 0-d tensor, "cache": tree}
 
 There is no ``use_pallas`` switch: attention, WKV6 and SSD always run the
-port's kernels on CUDA. Serving runs for the dense, ssm, hybrid and vlm
-families under ``torch.no_grad()``; the KV caches (dense and vlm, and
-hybrid's one per application of its shared block) are written in place.
+port's kernels on CUDA. Serving runs for the dense, ssm, hybrid, vlm and
+moe families under ``torch.no_grad()``; the KV caches (dense, vlm and moe,
+and hybrid's one per application of its shared block) are written in
+place.
 The vlm cache holds ``n_patches`` rows more than the text, the patches'; a
 decode step's ``pos`` is the absolute cache row, ``n_patches + S + t`` for
-the t-th step after a prompt of S tokens. Not ported yet: the moe and
-encdec families.
+the t-th step after a prompt of S tokens. The moe family's layers route
+each call's tokens as one group (``n_groups=1``, as the JAX trainer
+calls the loss), so a prefill, a decode step and a cache-free forward
+each have their own expert capacity; its load-balance aux loss reaches
+the train step's metrics as ``aux_loss`` and its total as ``AUX_COEF ·
+aux``. Not ported yet: the encdec family.
 """
 from __future__ import annotations
 
@@ -46,13 +51,14 @@ from repro_torch.optim import clip_by_global_norm, make_optimizer
 
 AUX_COEF = 0.01
 #: families whose prefill and decode are ported.
-SERVED = ("dense", "ssm", "hybrid", "vlm")
+SERVED = ("dense", "ssm", "hybrid", "vlm", "moe")
 #: family → (init, forward) of the ported families.
 _FAMILIES = {
     "dense": (transformer.init_transformer, transformer.forward),
     "ssm": (rwkv6.init_rwkv6, rwkv6.forward),
     "hybrid": (zamba2.init_zamba2, zamba2.forward),
     "vlm": (transformer.init_transformer, transformer.forward),
+    "moe": (transformer.init_transformer, transformer.forward),
 }
 
 
@@ -146,7 +152,7 @@ class Model:
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         B, S = tokens.shape
-        if cfg.family in ("dense", "vlm"):
+        if cfg.family in ("dense", "vlm", "moe"):
             kwargs, prefix = {}, 0
             if cfg.family == "vlm":
                 prefix = cfg.n_patches
@@ -182,7 +188,7 @@ class Model:
         self._served()
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        if cfg.family in ("dense", "vlm"):
+        if cfg.family in ("dense", "vlm", "moe"):
             logits, cache, _ = transformer.forward(
                 cfg, params, tokens, cache=batch["cache"], cache_pos=batch["pos"])
             return logits, cache
@@ -212,7 +218,7 @@ class Model:
 
     def cache_specs(self, batch, max_len):
         self._served()
-        if self.cfg.family == "dense":
+        if self.cfg.family in ("dense", "moe"):
             return transformer.cache_specs(self.cfg, batch, max_len)
         if self.cfg.family == "vlm":
             return transformer.cache_specs(self.cfg, batch, max_len,

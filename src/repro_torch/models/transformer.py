@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense family, from
+"""Decoder-only transformer, the dense, vlm and moe families, from
 ``repro/models/transformer.py`` (``init_layer``, ``init_transformer``,
 ``forward`` with its KV-cache path, ``make_cache``, ``cache_specs``).
 
@@ -21,7 +21,12 @@ RoPE positions and the KV cache's rows count the prefix (``make_cache``'s
 ``prefix``). The prefill writes rows ``0 … P + S - 1``; a decode step's
 position is the absolute cache row.
 
-Not ported yet: MoE layers.
+An MoE config (Arctic, the moe family) has ``moe`` (``models/moe.py``) in
+each layer in place of ``mlp``. Each layer returns its load-balance aux
+loss beside its output (None without MoE), also out of the checkpointed
+layer under remat, and ``forward`` sums it over the layers in fp32 in
+layer order, as JAX's scan carries it. Every layer's tokens form one group
+(``n_groups=1``), as the JAX trainer runs them.
 """
 from __future__ import annotations
 
@@ -30,18 +35,20 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import MaskSpec
 
 
 def init_layer(gen, cfg, device):
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
     p = {
         "ln1": L.init_norm(cfg.d_model, cfg.norm, device),
         "attn": L.init_attention(gen, cfg, device),
         "ln2": L.init_norm(cfg.d_model, cfg.norm, device),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, device),
     }
+    if cfg.is_moe:
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, device)
     if cfg.post_norm:
         p["post_ln1"] = L.init_norm(cfg.d_model, cfg.norm, device)
         p["post_ln2"] = L.init_norm(cfg.d_model, cfg.norm, device)
@@ -71,6 +78,8 @@ def _is_local_flags(cfg):
 
 def _layer_body(cfg, x, lp, spec, is_local, positions, cache_kv=None,
                 cache_pos=None):
+    """One layer → (output, its MoE aux loss: an fp32 scalar; None without
+    MoE)."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
     attn_out, _ = L.attention_sublayer(lp["attn"], h, cfg, spec,
                                        positions=positions, cache_kv=cache_kv,
@@ -79,10 +88,13 @@ def _layer_body(cfg, x, lp, spec, is_local, positions, cache_kv=None,
         attn_out = L.apply_norm(lp["post_ln1"], attn_out, cfg.norm, cfg.norm_eps)
     x = x + attn_out
     h = L.apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-    ff = L.mlp_sublayer(lp["mlp"], h, cfg.mlp)
+    if cfg.is_moe:
+        ff, aux = MOE.moe_sublayer(lp["moe"], h, cfg)
+    else:
+        ff, aux = L.mlp_sublayer(lp["mlp"], h, cfg.mlp), None
     if cfg.post_norm:
         ff = L.apply_norm(lp["post_ln2"], ff, cfg.norm, cfg.norm_eps)
-    return x + ff
+    return x + ff, aux
 
 
 def forward(cfg, params, tokens, *, patch_embeds=None, cache=None,
@@ -112,16 +124,18 @@ def forward(cfg, params, tokens, *, patch_embeds=None, cache=None,
     spec = MaskSpec(kind="prefix" if prefix > 0 else "causal",
                     window=cfg.sliding_window, prefix_len=prefix)
     layers = T.unstack(params["layers"], cfg.n_layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (lp, is_local) in enumerate(zip(layers, _is_local_flags(cfg))):
         if cache is not None:
-            x = _layer_body(cfg, x, lp, spec, is_local, positions,
-                            (cache["k"][i], cache["v"][i]), offset)
+            x, layer_aux = _layer_body(cfg, x, lp, spec, is_local, positions,
+                                       (cache["k"][i], cache["v"][i]), offset)
         elif cfg.remat:
-            x = checkpoint(_layer_body, cfg, x, lp, spec, is_local, positions,
-                           use_reentrant=False)
+            x, layer_aux = checkpoint(_layer_body, cfg, x, lp, spec, is_local,
+                                      positions, use_reentrant=False)
         else:
-            x = _layer_body(cfg, x, lp, spec, is_local, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, layer_aux = _layer_body(cfg, x, lp, spec, is_local, positions)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     if prefix > 0:
         x = x[:, prefix:]

@@ -340,31 +340,99 @@ def _cpu(tree):
 #: cores, so it rounds the probabilities to bf16 (the kernel is held to its
 #: plain version at ``_tol`` call by call, ``chip_smoke.attention_cases``),
 #: and over these models' untied unembedding that rounding moves 127
-#: (TinyLlama) and 48 (llama3) of 4,096 logits past ``_tol``, where the
-#: card's plain attention (fp32 probabilities) leaves none (PERF.md §6).
+#: (TinyLlama), 48 (llama3) and 85 (Arctic, routed as on the CPU) of 4,096
+#: logits past ``_tol``, where the card's plain attention (fp32
+#: probabilities) leaves none (PERF.md §6).
 #: JAX's XLA attention, which rounds them too, moves the reduced TinyLlama
 #: past ``_tol`` of the port on the CPU the same way
 #: (tests/test_torch_serve.py). Their bf16 comparison runs the plain
 #: attention on the card; fp32 runs the kernel.
-BF16_PROBABILITIES = ("tinyllama-1.1b", "llama3-405b")
+BF16_PROBABILITIES = ("tinyllama-1.1b", "llama3-405b", "arctic-480b")
 CARD_CPU_CASES = [(c, d) for c in SERVE_CASES for d in (f32, bf16)
                   if not (d == bf16 and c in BF16_PROBABILITIES)]
 
 
+class _Routing:
+    """While active, records each MoE call's router probabilities (G, T, E)
+    and its own expert choices (G, T, k), on the host (``moe._top_k``
+    wrapped). With ``forced``, the choices of an earlier run, call by call,
+    each call routes by those choices instead of its own, its gates read
+    from its own probabilities at them."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._orig = [], moe._top_k
+        forced = None if self.forced is None else iter(self.forced)
+
+        def recorded(probs, k):
+            vals, idx = self._orig(probs, k)
+            self.calls.append((probs.cpu(), idx.cpu()))
+            if forced is not None:
+                idx = next(forced).to(probs.device)
+                vals = torch.gather(probs, -1, idx.long())
+            return vals, idx
+
+        moe._top_k = recorded
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._top_k = self._orig
+
+
+def _flips(card_routes, cpu_routes, tol):
+    """The MoE calls' routing flips, card against CPU: (call, token, card's
+    choices, CPU's). Each must be a tie within ``tol``: at every choice
+    where the two differ, the two experts' router logits (log-probabilities
+    up to a constant) lie within ``tol`` of each other on both sides."""
+    flips = []
+    for i, ((pa, a), (pb, b)) in enumerate(zip(card_routes, cpu_routes)):
+        la, lb = torch.log(pa), torch.log(pb)
+        for g, t in torch.nonzero((a != b).any(-1)).tolist():
+            flips.append((i, t, a[g, t].tolist(), b[g, t].tolist()))
+            for ea, eb in zip(a[g, t].long().tolist(), b[g, t].long().tolist()):
+                if ea == eb:
+                    continue
+                for logit in (la[g, t], lb[g, t]):
+                    bar = tol["atol"] + tol["rtol"] * max(abs(logit[ea]), abs(logit[eb]))
+                    assert abs(logit[ea] - logit[eb]) <= bar, (
+                        f"MoE call {i}, token {t}: routing flip card "
+                        f"{a[g, t].tolist()} vs cpu {b[g, t].tolist()}, not a tie: "
+                        f"router logits {logit[ea]:.4f} and {logit[eb]:.4f}")
+    return flips
+
+
 def _card_against_cpu(cfg, params, tokens, patches, dtype, plain=()):
     """Forced serving on the card (the kernels in ``plain`` run as their
-    plain versions) against the CPU's plain versions, within ``serve_tol``."""
+    plain versions) against the CPU's plain versions, within ``serve_tol``.
+    An MoE config's card run routes by the CPU run's choices, call by call,
+    and records its own: where they differ (a routing flip) the two
+    experts' router logits must tie within ``serve_tol`` on both sides, and
+    the flips are printed; a flip is never left to the logits' bar."""
+    with _Routing() as cpu_routes:
+        cpu = chip_smoke.serve_forced(cfg, _cpu(params), tokens.cpu(), 64, 80, dtype,
+                                      patches=None if patches is None else patches.cpu())
     on_card = ops._on_card
     ops._on_card = lambda t, what: False if what in plain else on_card(t, what)
     try:
-        card = chip_smoke.serve_forced(cfg, params, tokens, 64, 80, dtype,
-                                       patches=patches)
+        with _Routing(forced=[idx for _, idx in cpu_routes]) as card_routes:
+            card = chip_smoke.serve_forced(cfg, params, tokens, 64, 80, dtype,
+                                           patches=patches)
     finally:
         ops._on_card = on_card
-    cpu = chip_smoke.serve_forced(cfg, _cpu(params), tokens.cpu(), 64, 80, dtype,
-                                  patches=None if patches is None else patches.cpu())
-    torch.testing.assert_close(card.cpu().float(), cpu.float(),
-                               **chip_smoke.serve_tol(cfg, dtype))
+    assert len(card_routes) == len(cpu_routes) == \
+        (1 + chip_smoke.FP32_DECODE_STEPS) * cfg.n_layers * cfg.is_moe
+    tol = chip_smoke.serve_tol(cfg, dtype)
+    flips = _flips(card_routes, cpu_routes, tol)
+    if flips:
+        print(f"{cfg.name} {dtype}: {len(flips)} routing flips, each a tie of "
+              f"router logits within {tol}: {flips}")
+    torch.testing.assert_close(card.cpu().float(), cpu.float(), **tol)
 
 
 @pytest.mark.parametrize("case, dtype", CARD_CPU_CASES,
@@ -438,3 +506,56 @@ def test_gemma2_cut_serves_at_full_width(gen):
     assert ops.launches == chip_smoke.serve_launches(cfg, 4)
     assert run.tokens.shape == (2, 4)
     assert all(bool(torch.isfinite(x).all()) for x in run.logits)
+
+
+def _tied_router_probs(gen, T, E):
+    """Softmax of router logits rounded to bf16 (as ``moe_sublayer`` makes
+    them), on the card, with exact ties planted at the top-1/top-2 boundary
+    in a third of the rows and at the top-2/top-3 boundary in another."""
+    logits = torch.randn((T, E), generator=gen, device="cuda").bfloat16().float()
+    order = torch.argsort(logits, dim=-1, descending=True, stable=True)
+    rows = torch.arange(T, device="cuda")
+    a, b = rows[:T // 3], rows[T // 3:2 * T // 3]
+    logits[a, order[a, 1]] = logits[a, order[a, 0]]
+    logits[b, order[b, 2]] = logits[b, order[b, 1]]
+    return torch.softmax(logits, dim=-1)
+
+
+@pytest.mark.parametrize("E", [8, 128])
+def test_moe_top_k_on_the_card_equals_the_cpu(gen, E):
+    """``moe._top_k`` (the stable descending sort, ``lax.top_k``'s tie
+    order, tests/test_torch_moe.py) on the card: the same experts, in the
+    same order, and the same values as on the CPU, on 8,192 rows of
+    bf16-rounded router probabilities with planted ties."""
+    from repro_torch.models import moe
+
+    probs = _tied_router_probs(gen, 8192, E)
+    vals, idx = moe._top_k(probs, 2)
+    cvals, cidx = moe._top_k(probs.cpu(), 2)
+    assert idx.dtype == torch.int32 and torch.equal(idx.cpu(), cidx)
+    assert torch.equal(vals.cpu(), cvals)
+
+
+@pytest.mark.parametrize("case", ["random", "all on one expert"])
+def test_moe_dispatch_indices_on_the_card_equal_the_cpu(gen, case):
+    """``moe._dispatch_indices`` at Arctic's E = 128, k = 2, T = 8,192 on
+    the card: experts, slots and keeps equal the CPU's (``==``), at the
+    capacity the serving prefill gets; every token on one expert overflows
+    it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    T, E, k = 8192, 128, 2
+    if case == "random":
+        idx = torch.argsort(torch.rand((T, E), generator=gen, device="cuda"),
+                            dim=-1)[:, :k].to(torch.int32)
+    else:
+        idx = torch.stack([torch.zeros(T, dtype=torch.int32, device="cuda"),
+                           torch.ones(T, dtype=torch.int32, device="cuda")], dim=1)
+    C = moe._capacity(T, get_config("arctic-480b"))
+    got = moe._dispatch_indices(idx, E, C)
+    want = moe._dispatch_indices(idx.cpu(), E, C)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    if case != "random":
+        assert int((~got[2]).sum()) == 2 * (T - C)

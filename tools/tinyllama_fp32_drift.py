@@ -108,7 +108,7 @@ def first_step(cfg, params, tokens, plain):
 
     def body_seen(*args, **kw):
         out = body(*args, **kw)
-        seen.append(out[:, -1].clone())
+        seen.append(out[0][:, -1].clone())
         return out
 
     with torch.no_grad(), _plain_attention(plain):
