@@ -17,8 +17,11 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    48:1 and llama3's 128:8 at full width; WKV6 at S 1 to 33 from a state)
    PaliGemma's prefix mask over 256 patches at head dim 256, MQA 8:1, in
    training, the serving prefill and decode, and fp32 and bf16 cases at
-   head dim 256; Arctic's GQA 56:8 at head dim 128 in training, the serving
-   prefill and decode) and over the JAX kernel sweeps; the many-leaf encode and decode (one
+   head dim 256; Arctic's GQA 56:8 at head dim 128 and Kimi's 64:8 at head
+   dim 112 in training, the serving prefill and decode; Whisper's encoder
+   (full over 1,500 frames), decoder and cross-attention (Sq != Skv) in
+   training, its serving prefill and decode; fp32 and bf16 cases at head
+   dim 112) and over the JAX kernel sweeps; the many-leaf encode and decode (one
    launch per state) bit for bit against the per-leaf plain versions, the
    decode over all of GPT-2's fp32 leaf shapes and a ragged set; adamw8bit's
    block quantizer on TinyLlama's embedding bit for bit as on the CPU;
@@ -35,9 +38,15 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    seeded patch embeddings per row) and Snowflake Arctic (moe) at full
    width on a cut of ``ARCTIC_LAYERS`` layers of ``ARCTIC_EXPERTS``
    experts, top-2, the dense residual, adamw8bit (``arctic_cut``; codec on
-   the (L, E, d, ff) expert leaves, flash attention at GQA 56:8), each
+   the (L, E, d, ff) expert leaves, flash attention at GQA 56:8) and
+   Kimi-K2 (moe) at full width on a cut of ``KIMI_LAYERS`` layers of
+   ``KIMI_EXPERTS`` experts, top-8, one shared expert, adamw8bit
+   (``kimi_cut``; flash attention at GQA 64:8, head dim 112), each
    step's aux loss and the first step's dropped (token, choice) pairs per
-   MoE call printed; each path's full state encoded by the many-leaf kernel bit
+   MoE call printed; Whisper-small (encdec) at full width and depth
+   (codec, flash attention: the encoder's over 1,500 seeded frame
+   embeddings, the decoder's self- and cross-attention over 448 text
+   tokens a row); each path's full state encoded by the many-leaf kernel bit
    for bit as the per-leaf plain encode; one scale-out's phases timed apart
    on the trainer's state (plan, encode, decode, round-trip check), the
    decoded state bit for bit as the per-leaf plain decode; one profiled
@@ -68,7 +77,9 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    (``Model.prefill``, ``Model.decode_step``): batch 8, a 1024-token
    prompt, 128 greedy new tokens, a cache of 1152 positions (PaliGemma:
    256 seeded patch embeddings in front, 1408 rows), bf16; Arctic on its
-   training cut (``arctic_cut``), the same request; and
+   training cut (``arctic_cut``) and Kimi on ``KIMI_SERVE_LAYERS`` layers
+   of its cut's experts, the same request; Whisper-small over 1,500 seeded
+   frames, a 4-token prompt and 224 new tokens (self cache 228); and
    gemma2-27b at full width on 2 layers (one local, one global), batch 2,
    a 4,608-token prompt (so that the window of 4,096 binds), 64 new
    tokens; launches held to the exact
@@ -89,8 +100,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    slot off, RoPE from position 0 at decode; PaliGemma: the cache written
    one slot off, decoding at the JAX launcher's ``S + t``, the causal mask
    on the cached prefill, and a cache without the patches' rows, which
-   must raise; Arctic: the dense family's) that must fail that check; for
-   Arctic the check counts the (token, choice) pairs each MoE call drops
+   must raise; Arctic and Kimi: the dense family's; Whisper: the self cache
+   written one slot off, the cross cache filled from another row's
+   frames) that must fail that check; for
+   Arctic and Kimi the check counts the (token, choice) pairs each MoE call drops
    past its experts' capacity on both sides (a prefill, a decode step and
    the cache-free forward each have their own capacity), leaves out every
    batch row that dropped a pair on either side and fails if none is
@@ -114,10 +127,12 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    ``scaled_dot_product_attention`` where it computes the same function:
    it has no softcap), WKV6 and SSD as device time per launch, one input
    set per layer (per application of Zamba2's shared block); attention
-   at PaliGemma's training shape (prefix 256, hd 256) and Arctic's
-   (causal, GQA 56:8, hd 128; also its serving prefill into the cache of
-   1152) beside SDPA with the mask as an explicit boolean mask (a
-   ``kernel_train_shape`` line);
+   at PaliGemma's training shape (prefix 256, hd 256), Arctic's (causal,
+   GQA 56:8, hd 128) and Kimi's (causal, GQA 64:8, hd 112; both also their
+   serving prefill into the cache of 1152) and Whisper's encoder, decoder
+   and cross-attention shapes beside SDPA with the mask as an explicit
+   boolean mask (a ``kernel_train_shape`` line), and Whisper's decode
+   cross-attention over its 1,500 frames;
 6. the simulator substrate (``repro_torch.core``: topology on a stdlib
    graph, the event simulator, the cluster monitor, the negotiation
    protocols, the baselines), host Python that launches no kernel:
@@ -226,6 +241,15 @@ ATTN_BF16_EDGES = [c[:-1] + (torch.bfloat16,) for c in ATTN_SWEEP
     (1, 300, 300, 4, 1, 256, "prefix", 64, 100, 0.0, torch.bfloat16),
     (2, 130, 330, 8, 1, 256, "prefix", 0, 100, 0.0, torch.bfloat16),
     (1, 257, 257, 2, 2, 256, "full", 0, 0, 30.0, torch.bfloat16),
+    # Head dim 112 (Kimi-K2's; two 64-column panels, the second half
+    # padding, seven QKᵀ k-steps): GQA 64:8 over a ragged Sq, MQA 8:1, a
+    # window with a softcap, a prefix into a longer ragged cache, full with
+    # Skv != Sq.
+    (1, 300, 300, 64, 8, 112, "causal", 0, 0, 0.0, torch.bfloat16),
+    (2, 200, 200, 8, 1, 112, "causal", 0, 0, 0.0, torch.bfloat16),
+    (1, 192, 192, 2, 2, 112, "causal", 48, 0, 30.0, torch.bfloat16),
+    (2, 130, 330, 8, 1, 112, "prefix", 0, 100, 0.0, torch.bfloat16),
+    (1, 100, 300, 4, 2, 112, "full", 0, 0, 0.0, torch.bfloat16),
 ]
 # Head dim 256 in fp32, beside the JAX sweep: the prefix mask with a prefix
 # of 100 (no multiple of the 64-key tile), also into a longer cache (Skv >
@@ -236,6 +260,16 @@ ATTN_HD256 = [
     (1, 200, 200, 2, 1, 256, "prefix", 48, 100, 0.0, torch.float32),
     (1, 128, 128, 4, 2, 256, "causal", 0, 0, 0.0, torch.float32),
     (1, 96, 160, 2, 2, 256, "full", 0, 0, 0.0, torch.float32),
+]
+# Head dim 112 in fp32 (the FMA path: seven float4s per thread of a row):
+# causal at GQA 64:8 over a ragged Sq, a window with a softcap, the prefix
+# mask into a longer cache, full with Skv != Sq; the decode rows are in
+# ``attention_cases``.
+ATTN_HD112 = [
+    (1, 200, 200, 64, 8, 112, "causal", 0, 0, 0.0, torch.float32),
+    (1, 192, 192, 2, 2, 112, "causal", 48, 0, 30.0, torch.float32),
+    (1, 200, 330, 4, 1, 112, "prefix", 0, 100, 0.0, torch.float32),
+    (1, 96, 160, 2, 2, 112, "full", 0, 0, 0.0, torch.float32),
 ]
 
 
@@ -268,13 +302,18 @@ SSD_BF16_EDGES = [
 # The main paths, one per trained family, and their steps: before the
 # scale-out (2 logical devices), between it and the scale-in (3), after (2).
 PATHS = ["gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b", "paligemma-3b",
-         "arctic-480b"]
+         "arctic-480b", "kimi-k2-1t-a32b", "whisper-small"]
 STEPS = (3, 2, 2)
 # PaliGemma's path runs at per-device batch 2 (global batch 4, then 6):
 # at 12 rows its loss over the 257,216-token vocabulary holds about five
 # fp32 logits-sized buffers of 12.6 GB at once, and ran out of the card's
 # memory at every depth tried, 6 to 18 layers (tools/cut_memory.py).
-PATH_PER_DEVICE_BATCH = {"paligemma-3b": 2}
+PATH_PER_DEVICE_BATCH = {"paligemma-3b": 2, "kimi-k2-1t-a32b": 2}
+# Whisper's decoder trains on 448 text tokens a row, its published text
+# context (n_text_ctx), behind the encoder's 1,500 frames; every other path
+# on SEQ tokens.
+WHISPER_TEXT = 448
+PATH_SEQ = {"whisper-small": WHISPER_TEXT}
 # The main paths that run with the caching allocator's expandable segments.
 # PaliGemma's allocates state-sized blocks (the scale-out's decoded copy, 23
 # GB at 14 layers) after steps whose logits buffers leave fixed segments cut
@@ -285,9 +324,16 @@ EXPANDABLE_SEGMENTS = ("paligemma-3b",)
 # depth: batch 8, a 1024-token prompt, 128 greedy new tokens (the prefill's
 # and 127 decode steps'), and so a cache of 1152 positions.
 SERVE_PATHS = ("gpt2", "rwkv6-1.6b", "zamba2-1.2b", "tinyllama-1.1b", "paligemma-3b",
-               "arctic-480b")
+               "arctic-480b", "kimi-k2-1t-a32b", "whisper-small")
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 128
 SERVE_CACHE = SERVE_PROMPT + SERVE_TOKENS
+# Whisper's request: 1,500 frames through the encoder and the cross-KV
+# cache, a 4-token prompt (the start-of-transcript sequence) and 224 new
+# tokens (its default sample_len), so a self cache of 228 rows.
+WHISPER_PROMPT, WHISPER_TOKENS = 4, 224
+# The stubbed frontend's frame embeddings, seeded normals scaled as the
+# port's training batches scale them (``data.synthetic.stub_inputs``).
+FRAME_SCALE = 0.02
 # gemma2-27b served at full width on a cut depth: one local (window 4,096)
 # and one global layer, batch 2, a 4,608-token prompt (so that the local
 # layer's window binds) and 64 new tokens.
@@ -315,6 +361,21 @@ PALIGEMMA_LAYERS = 14
 # arctic-480b, PERF.md §4); 2 x 16 (4.25 B) is larger still.
 ARCTIC_LAYERS = 2
 ARCTIC_EXPERTS = 8
+# Kimi-K2 1T-A32B (moe) trains at full width (d_model 7,168, 64:8 heads at
+# hd 112, 384 experts of width 2,048 top-8 in the full config, one shared
+# expert, vocab 163,840 untied, adamw8bit) on a cut of KIMI_LAYERS layers
+# of KIMI_EXPERTS experts (``kimi_cut``): more than 8 experts, so that the
+# top-8 routing chooses at all. Its embedding and unembedding leaves are
+# 4.70 GB each in fp32. It is served on KIMI_SERVE_LAYERS layers of the
+# same experts: serving holds only the params and their per-step bf16
+# casts. The cut was chosen by ``tools/cut_memory.py --arch
+# kimi-k2-1t-a32b`` (PERF.md §4, §6): 1 x 16 (3.21 B params, a 19.4 GB
+# state) peaks at 61.8 GB with the leaf-by-leaf train step; 2 x 16 (4.08
+# B, 24.6 GB) trains its 7 steps, then runs out of the card's memory at
+# 73.7 GiB allocated, before its replica tier (3 x its state).
+KIMI_LAYERS = 1
+KIMI_EXPERTS = 16
+KIMI_SERVE_LAYERS = 2
 # The dense configs that fit no card, run reduced (phase 3e): a short
 # elastic run with one int8 scale-out and a served request each.
 REDUCED_DENSE = ("granite-34b", "llama3-405b")
@@ -534,6 +595,8 @@ def main_shapes():
         cfg = path_config(name)
         prefix = prefix_rows(cfg)
         for B in path_batches(name):
+            # Whisper's encoder, self and cross shapes differ in Sq and
+            # Skv: ``whisper_attention_shapes``.
             if cfg.family in ("dense", "hybrid", "vlm", "moe"):
                 theta = cfg.rope_theta if cfg.positions == "rope" else 0.0
                 shapes["flash_attention"].append((name, (
@@ -568,6 +631,19 @@ def arctic_cut():
 
     return dataclasses.replace(get_config("arctic-480b"), n_layers=ARCTIC_LAYERS,
                                n_experts=ARCTIC_EXPERTS)
+
+
+def kimi_cut(n_layers=None):
+    """kimi-k2-1t-a32b at full width on ``KIMI_LAYERS`` layers (or
+    ``n_layers``) of ``KIMI_EXPERTS`` experts, ``top_k`` 8 and the shared
+    expert kept (a config chosen here, not an option of the port)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("kimi-k2-1t-a32b"),
+                               n_layers=n_layers or KIMI_LAYERS,
+                               n_experts=KIMI_EXPERTS)
 
 
 def paligemma_cut():
@@ -613,16 +689,27 @@ def path_config(name):
     cuts, the full config otherwise."""
     from repro_torch.configs import get_config
 
-    cuts = {"paligemma-3b": paligemma_cut, "arctic-480b": arctic_cut}
+    cuts = {"paligemma-3b": paligemma_cut, "arctic-480b": arctic_cut,
+            "kimi-k2-1t-a32b": kimi_cut}
     return cuts[name]() if name in cuts else get_config(name)
 
 
+def path_seq(name):
+    """The text tokens a row of the main path ``name`` trains on."""
+    return PATH_SEQ.get(name, SEQ)
+
+
 def serve_config(name):
-    """The config the serving run ``name`` serves: Arctic's cut, the full
-    config otherwise (PaliGemma is served at full depth)."""
+    """The config the serving run ``name`` serves: Arctic's cut, Kimi's on
+    ``KIMI_SERVE_LAYERS`` layers, the full config otherwise (PaliGemma is
+    served at full depth)."""
     from repro_torch.configs import get_config
 
-    return arctic_cut() if name == "arctic-480b" else get_config(name)
+    if name == "arctic-480b":
+        return arctic_cut()
+    if name == "kimi-k2-1t-a32b":
+        return kimi_cut(KIMI_SERVE_LAYERS)
+    return get_config(name)
 
 
 def prefix_rows(cfg):
@@ -641,20 +728,54 @@ def patches_for(cfg, n_rows, rng):
             * np.float32(PATCH_SCALE))
 
 
-def path_batch(cfg, toks, rng):
-    """One step's global batch: the tokens and, for a vlm, one row of
-    patches per token row (``patches_for``)."""
-    batch = {"tokens": toks}
+def frames_for(cfg, n_rows, rng):
+    """An encdec model's frame embeddings for ``n_rows`` batch rows,
+    (n_rows, enc_len, d_model) fp32 on the host from the numpy generator
+    ``rng``: normals x ``FRAME_SCALE``; None for the other families."""
+    if cfg.family != "encdec":
+        return None
+    return (rng.standard_normal((n_rows, cfg.enc_len, cfg.d_model), dtype=np.float32)
+            * np.float32(FRAME_SCALE))
+
+
+def stub_for(cfg, n_rows, rng):
+    """The stubbed encoder inputs of ``n_rows`` batch rows, as keyword
+    arguments of ``launch.serve.generate``: a vlm's ``patches``
+    (``patches_for``), an encdec model's ``frames`` (``frames_for``), on
+    the host; none for the other families."""
     if cfg.family == "vlm":
-        batch["patches"] = patches_for(cfg, len(toks), rng)
-    return batch
+        return {"patches": patches_for(cfg, n_rows, rng)}
+    if cfg.family == "encdec":
+        return {"frames": frames_for(cfg, n_rows, rng)}
+    return {}
+
+
+def stub_kwargs(cfg, patches=None, frames=None):
+    """The forward's keyword arguments for the stubbed inputs: a vlm's
+    ``patch_embeds``, an encdec model's ``frames``."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": patches}
+    if cfg.family == "encdec":
+        return {"frames": frames}
+    return {}
+
+
+def path_batch(cfg, toks, rng):
+    """One step's global batch: the tokens and, for a vlm or an encdec
+    model, one row of patches or frames per token row (``stub_for``)."""
+    return {"tokens": toks, **stub_for(cfg, len(toks), rng)}
 
 
 def serve_runs():
     """``(label, cfg, batch, prompt, new tokens)`` of each serving run
-    (phase 3d): ``SERVE_PATHS`` at full width and depth (Arctic on its
-    cut), then gemma2's cut."""
-    return ([(name, serve_config(name), SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS)
+    (phase 3d): ``SERVE_PATHS`` at full width and depth (Arctic and Kimi
+    on their cuts; Whisper's request its own), then gemma2's cut."""
+    def request(name):
+        if name == "whisper-small":
+            return WHISPER_PROMPT, WHISPER_TOKENS
+        return SERVE_PROMPT, SERVE_TOKENS
+
+    return ([(name, serve_config(name), SERVE_BATCH, *request(name))
              for name in SERVE_PATHS]
             + [(f"gemma2-27b, {GEMMA2_LAYERS} layers", gemma2_cut(), GEMMA2_BATCH,
                 GEMMA2_PROMPT, GEMMA2_TOKENS)])
@@ -696,6 +817,8 @@ def serve_attention_cases():
              for name, B in FULL_WIDTH_ATTENTION]
     cases = []
     for label, cfg, B, P, cache_len in runs:
+        if cfg.family == "encdec":
+            cases += whisper_serve_cases(label, cfg, B, P, cache_len)
         if cfg.family not in ("dense", "hybrid", "vlm", "moe"):
             continue
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -719,6 +842,42 @@ def serve_attention_cases():
     return cases
 
 
+def whisper_attention_shapes(cfg, B, text):
+    """``(label, case)`` of Whisper's attention at batch ``B`` and ``text``
+    decoder tokens, bf16 as the model runs it: the encoder's full
+    attention over ``enc_len`` frames (1,500: no multiple of the kernel's
+    tiles), the decoder's causal self-attention, and its full
+    cross-attention from the text over the frames (Sq != Skv)."""
+    H, K, hd, T = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.enc_len
+
+    def case(Sq, Skv, kind):
+        return (B, Sq, Skv, H, K, hd, kind, 0, 0, 0.0, torch.bfloat16)
+
+    return [("encoder", case(T, T, "full")), ("self", case(text, text, "causal")),
+            ("cross", case(text, T, "full"))]
+
+
+def whisper_serve_cases(label, cfg, B, P, cache_len):
+    """``(label, case, rope_theta, q_offset, scale)`` of a Whisper request:
+    the prefill's encoder over the frames, its self-attention of the
+    prompt into the self cache of ``cache_len`` rows and its
+    cross-attention over the cross cache, then the decode's
+    self-attention at each of ``decode_q_offsets`` and its cross-attention
+    (one query row over the frames, q_offset 0 as the model calls it)."""
+    H, K, hd, T = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.enc_len
+
+    def case(Sq, Skv, kind):
+        return (B, Sq, Skv, H, K, hd, kind, 0, 0, 0.0, torch.bfloat16)
+
+    return ([(f"{label} serve encoder", case(T, T, "full"), 0.0, 0, None),
+             (f"{label} serve prefill self", case(P, cache_len, "causal"), 0.0, 0,
+              None),
+             (f"{label} serve prefill cross", case(P, T, "full"), 0.0, 0, None),
+             (f"{label} serve decode cross", case(1, T, "full"), 0.0, 0, None)]
+            + [(f"{label} serve decode self q_offset={o}", case(1, cache_len, "causal"),
+                0.0, o, None) for o in decode_q_offsets(cfg, cache_len, (P,))])
+
+
 def attention_cases():
     """``(label, case, rope_theta, q_offset, scale)``: the main paths'
     shapes, the serving runs', then the JAX sweep, the fp32 cases at head
@@ -729,11 +888,21 @@ def attention_cases():
                                 torch.bfloat16), theta, 0, None)
              for path, (B, S, H, K, hd, kind, prefix, softcap, theta)
              in main_shapes()["flash_attention"]]
+    for name in PATHS:
+        cfg = path_config(name)
+        if cfg.family == "encdec":
+            cases += [(f"{name} B={B} {part}", case, 0.0, 0, None)
+                      for B in path_batches(name)
+                      for part, case in whisper_attention_shapes(cfg, B, path_seq(name))]
     return (cases + serve_attention_cases()
             + [(f"sweep {i}", c, 0.0, 0, None) for i, c in enumerate(ATTN_SWEEP)]
             + [(f"sweep hd256 {i}", c, 0.0, 0, None) for i, c in enumerate(ATTN_HD256)]
             + [("sweep hd256 decode", (2, 1, 330, 8, 1, 256, "causal", 0, 0, 0.0,
                                        torch.float32), 1e4, 250, None)]
+            + [(f"sweep hd112 {i}", c, 0.0, 0, None) for i, c in enumerate(ATTN_HD112)]
+            + [("sweep hd112 decode", (2, 1, 1152, 64, 8, 112, "causal", 0, 0, 0.0,
+                                       torch.float32), 1e4, o, None)
+               for o in DECODE_Q_OFFSETS]
             + [(f"sweep bf16 {i}", c, 0.0, 0, None)
                for i, c in enumerate(ATTN_BF16_EDGES)])
 
@@ -779,7 +948,8 @@ def check_attention(fa, gen):
                 f"{q_offset}: max |kernel - plain| {err:.3e} (rtol/atol 2e-2)")
         torch.cuda.empty_cache()
     log(f"attention: {len(ATTN_SWEEP)} sweep cases, {len(ATTN_HD256) + 1} fp32 "
-        f"cases at hd 256 and {len(ATTN_BF16_EDGES)} bf16 edges within _tol")
+        f"cases at hd 256, {len(ATTN_HD112) + len(DECODE_Q_OFFSETS)} at hd 112 "
+        f"and {len(ATTN_BF16_EDGES)} bf16 edges within _tol")
     return main_err
 
 
@@ -994,14 +1164,16 @@ def _bytes(t):
     return t.reshape(-1).view(torch.uint8)
 
 
-def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1):
+def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1,
+                      serving=False):
     """The launches of a run of ``steps`` steps and ``scale_outs`` int8
     scale-outs, kernel by kernel: per step, each layer's kernel once in the
     forward and once more in its remat recompute (the backwards
     differentiate the plain versions and launch nothing); Zamba2's shared
     attention block, applied outside the remat, once per application; in
     each scale-out, the encode once for all fp32 leaves together and the
-    decode once for all of them."""
+    decode once for all of them. ``serving``: the steps are one request's
+    forwards (its prefill and decode steps), which run an encoder once."""
     from repro_torch.kernels import ops
     from repro_torch.models import zamba2
 
@@ -1011,6 +1183,13 @@ def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1):
     n["shard_decode"] = scale_outs if n_coded_leaves else 0
     if cfg.family in ("dense", "vlm", "moe"):
         n["flash_attention"] = per_layer
+    elif cfg.family == "encdec":
+        # Each decoder layer's self- and cross-attention, each encoder
+        # layer's attention; a served request runs the encoder once, in
+        # its prefill.
+        encodes = 1 if serving else steps
+        n["flash_attention"] = 2 * per_layer + encodes * cfg.enc_layers * (
+            2 if cfg.remat else 1)
     elif cfg.family == "ssm":
         n["wkv6"] = per_layer
     elif cfg.family == "hybrid":
@@ -1034,12 +1213,13 @@ def main_path(ops, name):
     cfg = path_config(name)
     model = build_model(cfg)
     per_device = PATH_PER_DEVICE_BATCH.get(name, PER_DEVICE_BATCH)
-    loader = ShardedLoader(TokenStream(cfg.vocab, SEQ, seed=0), 4096, [0],
+    seq = path_seq(name)
+    loader = ShardedLoader(TokenStream(cfg.vocab, seq, seed=0), 4096, [0],
                            per_device)
-    patch_rng = np.random.default_rng(0)
+    stub_rng = np.random.default_rng(0)
 
     def batch_of(toks):
-        return path_batch(cfg, toks, patch_rng)
+        return path_batch(cfg, toks, stub_rng)
 
     trainer = ElasticTrainer(model, initial=2,
                              per_device_batch=per_device,
@@ -1050,11 +1230,12 @@ def main_path(ops, name):
     manifest = build_manifest(trainer.state)
     depth = ("full width and depth" if cfg.n_layers == get_config(name).n_layers
              else f"full width, {cfg.n_layers} of {get_config(name).n_layers} layers")
-    patches = (f" and {cfg.n_patches} patch embeddings in front"
-               if cfg.family == "vlm" else "")
+    stub = {"vlm": f" and {cfg.n_patches} patch embeddings in front",
+            "encdec": f" behind {cfg.enc_layers} encoder layers over "
+                      f"{cfg.enc_len} frame embeddings"}.get(cfg.family, "")
     log(f"path {name}: {depth} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {n_params} params; state {manifest.total_bytes} "
-        f"bytes in {len(manifest.entries)} leaves), seq {SEQ}{patches}, "
+        f"bytes in {len(manifest.entries)} leaves), seq {seq}{stub}, "
         f"per-device batch {per_device}, int8 codec")
     losses, aux_losses, drops = [], [], []
 
@@ -1075,10 +1256,10 @@ def main_path(ops, name):
                 from repro_torch.models import moe
 
                 drops.extend(dropped_pairs(seen))
-                C = moe._capacity(len(toks) * SEQ, cfg)
+                C = moe._capacity(len(toks) * seq, cfg)
                 log(f"  dropped (token, choice) pairs of each MoE call of that "
                     f"step (the forward's {cfg.n_layers} layers, then the remat "
-                    f"recompute's): {drops}, of {len(toks) * SEQ * cfg.top_k} "
+                    f"recompute's): {drops}, of {len(toks) * seq * cfg.top_k} "
                     f"pairs a call; capacity {C} for each of {cfg.n_experts} experts")
 
     torch.cuda.reset_peak_memory_stats()
@@ -1796,27 +1977,82 @@ def reduced_dense(ops, arch):
     return launches
 
 
-#: Dense and vlm configs whose fp32 cached decode parts from the cache-free
-#: forward by the order of its fp32 sums alone, an order cuBLAS (its
-#: products) and PyTorch (the norms' means) pick by the number of rows: a
-#: decode step's 8 against the cache-free forward's 8 x 1,031 (PaliGemma's
-#: 8 x 1,287 with its patches). ``tools/tinyllama_fp32_drift.py`` shows it
-#: on the card for both (PERF.md §6): with the cached side's products and
-#: norms run at the cache-free row counts the gap closes.
-FP32_SUMS_BY_ROWS = ("tinyllama-1.1b", "paligemma-3b")
+#: The families whose serving checks are held at ``_tol`` (``serve_tol``).
+TOL_FAMILIES = ("dense", "vlm", "moe", "encdec")
 
 
 def serve_tol(cfg, dtype):
     """The fixed tolerance of a serving check, tests/test_kernels.py's own:
-    ``_tol`` for the dense, vlm and moe families (attention); ``_rec_tol`` for the ssm and
+    ``_tol`` for ``TOL_FAMILIES`` (attention); ``_rec_tol`` for the ssm and
     hybrid families, whose decode runs WKV6 or SSD one step per launch
     where the cache-free forward runs every step in one launch, so their
-    fp32 sums come in another order, and for the dense configs of
-    ``FP32_SUMS_BY_ROWS``, whose fp32 sums come in another order at a
-    decode step's row count."""
-    if cfg.family in ("dense", "vlm", "moe") and cfg.name not in FP32_SUMS_BY_ROWS:
+    fp32 sums come in another order."""
+    if cfg.family in TOL_FAMILIES:
         return tol(dtype)
     return rec_tol(dtype)
+
+
+@contextlib.contextmanager
+def at_cache_free_rows(rows, unembed_rows, vocab, capacity):
+    """For the duration, every fp32 product and norm of the cached side of
+    ``serve_fp32_check`` runs at the cache-free forward's row count: an
+    ``x @ w`` or an rmsnorm/layernorm over fewer than ``rows`` rows (the
+    unembedding, ``w`` of ``vocab`` columns: ``unembed_rows``) runs inside
+    zero rows up to that count, and an MoE expert product over a buffer of
+    fewer than ``capacity`` slots runs inside zero slots up to it. cuBLAS
+    (the products) and PyTorch (the norms' means over d_model) pick the
+    order of their fp32 sums by the row count, so a decode step's 8 rows
+    and the cache-free forward's 8 x 1,031 sum in other orders
+    (``tools/tinyllama_fp32_drift.py``, PERF.md §6); padded, both sides
+    compute each row in the same order, and the check sees the cache's
+    logic alone. Each row's result is a function of that row only: the
+    zero rows change no value of the others."""
+    from repro_torch.models import layers as L
+
+    f32 = torch.float32
+    matmul, einsum = torch.Tensor.__matmul__, torch.einsum
+    norms = {"rmsnorm": L.rmsnorm, "layernorm": L.layernorm}
+
+    def pad_rows(flat, m):
+        big = flat.new_zeros((m, flat.shape[1]))
+        big[:flat.shape[0]] = flat
+        return big
+
+    def padded_matmul(a, b):
+        if a.dtype == f32 and a.dim() >= 2 and b.dim() == 2:
+            m = unembed_rows if b.shape[-1] == vocab else rows
+            flat = a.reshape(-1, a.shape[-1])
+            if flat.shape[0] < m:
+                out = matmul(pad_rows(flat, m), b)[:flat.shape[0]]
+                return out.reshape(*a.shape[:-1], b.shape[-1])
+        return matmul(a, b)
+
+    def padded_einsum(eq, a, *rest):
+        # The experts' products: "gecd,edf->gecf" and "gecf,efd->gecd".
+        if eq.startswith("gec") and a.dtype == f32 and a.shape[2] < capacity:
+            big = a.new_zeros((*a.shape[:2], capacity, a.shape[3]))
+            big[:, :, :a.shape[2]] = a
+            return einsum(eq, big, *rest)[:, :, :a.shape[2]]
+        return einsum(eq, a, *rest)
+
+    def padded_norm(norm):
+        def run(x, *args, **kw):
+            flat = x.reshape(-1, x.shape[-1])
+            if x.dtype != f32 or flat.shape[0] >= rows:
+                return norm(x, *args, **kw)
+            return norm(pad_rows(flat, rows), *args, **kw)[:flat.shape[0]].reshape(
+                x.shape)
+        return run
+
+    torch.Tensor.__matmul__, torch.einsum = padded_matmul, padded_einsum
+    for name, norm in norms.items():
+        setattr(L, name, padded_norm(norm))
+    try:
+        yield
+    finally:
+        torch.Tensor.__matmul__, torch.einsum = matmul, einsum
+        for name, norm in norms.items():
+            setattr(L, name, norm)
 
 
 def serve_launches(cfg, n_tokens):
@@ -1826,7 +2062,7 @@ def serve_launches(cfg, n_tokens):
     import dataclasses
 
     return expected_launches(dataclasses.replace(cfg, remat=False), 0,
-                             steps=n_tokens, scale_outs=0)
+                             steps=n_tokens, scale_outs=0, serving=True)
 
 
 #: Faults planted in the serving path, per family; each must fail the fp32
@@ -1843,7 +2079,9 @@ SERVE_FAULTS = {"dense": ("cache written one slot off",
                 "vlm": ("cache written one slot off",
                         "decode at the JAX launcher's S + t",
                         "causal mask on the cached prefill",
-                        "cache without the prefix rows")}
+                        "cache without the prefix rows"),
+                "encdec": ("cache written one slot off",
+                           "cross cache from other frames")}
 SERVE_FAULTS["moe"] = SERVE_FAULTS["dense"]
 #: Planted faults that make the cached side raise (a KV cache overflow)
 #: instead of giving logits: the check holds them to raising.
@@ -1907,12 +2145,13 @@ def planted_fault(fault):
     decode step written and rotated at ``S + t`` (its position without the
     patches' rows, as the JAX launcher decodes), its cached prefill under
     the causal mask instead of the prefix mask, or its cache made without
-    the patches' rows."""
+    the patches' rows; an encdec model's cross-KV cache filled from another
+    batch row's frames (the encoder's output rolled by one row)."""
     import dataclasses
 
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
-    from repro_torch.models import mamba2, rwkv6, transformer, zamba2
+    from repro_torch.models import mamba2, rwkv6, transformer, whisper, zamba2
 
     if fault is None:
         yield
@@ -1997,6 +2236,12 @@ def planted_fault(fault):
 
         def faulty(cfg, batch, max_len, dtype=torch.bfloat16, device=None, prefix=0):
             return orig(cfg, batch, max_len, dtype, device)
+    elif fault == "cross cache from other frames":
+        module, name = whisper, "precompute_cross_kv"
+        orig = whisper.precompute_cross_kv
+
+        def faulty(cfg, params, enc_out):
+            return orig(cfg, params, enc_out.roll(1, dims=0))
     elif fault == "the attention softcap dropped":
         module, name = L, "attention_sublayer"
         orig = L.attention_sublayer
@@ -2015,21 +2260,29 @@ def planted_fault(fault):
 
 
 def serve_forced(cfg, params, tokens, n_prompt, cache_len, dtype=torch.float32,
-                 patches=None):
+                 patches=None, frames=None):
     """Serving teacher-forced, activations and KV caches in ``dtype``:
     prefill ``tokens[:, :n_prompt]`` into a cache of ``cache_len``
     positions (dense, hybrid; a vlm prefills ``patches`` in front, into a
-    cache of ``cache_len`` + n_patches rows) or from a zero state (ssm, and
-    hybrid's Mamba2 blocks), then decode the other tokens one per step,
-    each at its position (a vlm's after the patches' rows). Returns the
-    logits at positions ``n_prompt - 1`` onwards, (B, n - n_prompt + 1, V)
-    in ``dtype``."""
-    from repro_torch.models import rwkv6, transformer, zamba2
+    cache of ``cache_len`` + n_patches rows; an encdec model runs
+    ``frames`` through its encoder into the cross-KV cache) or from a zero
+    state (ssm, and hybrid's Mamba2 blocks), then decode the other tokens
+    one per step, each at its position (a vlm's after the patches' rows).
+    Returns the logits at positions ``n_prompt - 1`` onwards, (B, n -
+    n_prompt + 1, V) in ``dtype``."""
+    from repro_torch.models import rwkv6, transformer, whisper, zamba2
 
     B, n = tokens.shape
     pre, first = prefix_rows(cfg), {}
     with torch.no_grad():
-        if cfg.family in ("dense", "vlm", "moe"):
+        if cfg.family == "encdec":
+            cache = whisper.make_cache(cfg, B, cache_len, dtype, tokens.device)
+            first = {"frames": frames}
+
+            def step(toks, pos, cache, **kw):
+                return whisper.forward(cfg, params, toks, cache=cache, cache_pos=pos,
+                                       last_only=True, dtype=dtype, **kw)[:2]
+        elif cfg.family in ("dense", "vlm", "moe"):
             cache = transformer.make_cache(cfg, B, cache_len, dtype, tokens.device,
                                            prefix=pre)
             if pre:
@@ -2104,10 +2357,13 @@ def dropped_rows(seen, n_rows):
     return rows
 
 
-def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len, patches=None):
-    """fp32 cached against cache-free logits: ``serve_forced`` against the
-    cache-free fp32 forward over all of ``tokens`` (a vlm's behind its
-    ``patches``), at every position from the prompt's last on, within
+def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len, patches=None,
+                     frames=None):
+    """fp32 cached against cache-free logits: ``serve_forced`` (for
+    ``TOL_FAMILIES``, its products and norms at the cache-free row counts:
+    ``at_cache_free_rows``) against the cache-free fp32 forward over all of ``tokens`` (a vlm's
+    behind its ``patches``, an encdec model's over its ``frames``), at
+    every position from the prompt's last on, within
     ``serve_tol(cfg, fp32)``; then each of ``serve_faults(cfg)`` planted,
     each of which must leave that tolerance, or, for ``RAISING_FAULTS``,
     raise a KV cache overflow. Raises if either fails; returns the
@@ -2126,7 +2382,7 @@ def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len, patches=None):
 
     f32 = torch.float32
     B = tokens.shape[0]
-    kw = {"patch_embeds": patches} if cfg.family == "vlm" else {}
+    kw = stub_kwargs(cfg, patches, frames)
     with torch.no_grad(), moe_drops(B) as free_drops:
         hidden, _ = _family_forward(cfg)(cfg, params, tokens,
                                          return_hidden=True, dtype=f32, **kw)
@@ -2134,12 +2390,25 @@ def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len, patches=None):
     del hidden
     t = serve_tol(cfg, f32)
     rows = None  # the rows compared, set by the check without a fault
+    # The cache-free forward's row counts: its tokens (a vlm's patches in
+    # front), the positions it unembeds, its MoE calls' capacity.
+    free_rows = B * (tokens.shape[1] + prefix_rows(cfg))
+    capacity = 0
+    if cfg.is_moe:
+        from repro_torch.models import moe
+
+        capacity = moe._capacity(free_rows, cfg)
+
+    def padded():
+        if cfg.family not in TOL_FAMILIES:
+            return contextlib.nullcontext()
+        return at_cache_free_rows(free_rows, B * want.shape[1], cfg.vocab, capacity)
 
     def run(fault):
         nonlocal rows
-        with planted_fault(fault), moe_drops(B) as cached_drops:
+        with planted_fault(fault), moe_drops(B) as cached_drops, padded():
             got = serve_forced(cfg, params, tokens, n_prompt, cache_len,
-                               patches=patches)
+                               patches=patches, frames=frames)
         if rows is None:
             rows = ~(dropped_rows(free_drops, B) | dropped_rows(cached_drops, B))
             drops["cached"] = sum(dropped_pairs(cached_drops))
@@ -2230,12 +2499,12 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     prompts = torch.randint(0, cfg.vocab, (B, P), generator=host).cuda()
     forced = torch.randint(0, cfg.vocab, (B, FP32_DECODE_STEPS), generator=host).cuda()
     pre = prefix_rows(cfg)
-    patches = patches_for(cfg, B, np.random.default_rng(1))
-    patches = None if patches is None else torch.from_numpy(patches).cuda()
-    kw = {"patch_embeds": patches} if pre else {}
+    stub = {key: torch.from_numpy(x).cuda()
+            for key, x in stub_for(cfg, B, np.random.default_rng(1)).items()}
+    kw = stub_kwargs(cfg, **stub)
     # A warm-up request (a prefill and one decode step) first, so that the
     # timed one reads steady times, not the first call's library set-up.
-    generate(model, params, prompts, 2, patches=patches)
+    generate(model, params, prompts, 2, **stub)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2243,8 +2512,8 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    run = generate(model, params, prompts, n_tokens, patches=patches, stream=True,
-                   keep_logits=True)
+    run = generate(model, params, prompts, n_tokens, stream=True, keep_logits=True,
+                   **stub)
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -2259,7 +2528,7 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
         raise AssertionError(f"serving {name}: logits {tuple(served.shape)}, "
                              f"tokens {tuple(run.tokens.shape)}, finite "
                              f"{bool(torch.isfinite(served).all())}")
-    window = generate(model, params, prompts, n_tokens, patches=patches).decode_ms
+    window = generate(model, params, prompts, n_tokens, **stub).decode_ms
     steps = np.array(run.step_ms)
     summary = {
         "model": name, "n_params": n_params, "batch": B, "prompt": P,
@@ -2312,13 +2581,11 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     # fp32 cached against cache-free, with the planted faults.
     t0 = time.perf_counter()
     summary["fp32_check"] = serve_fp32_check(
-        cfg, params, torch.cat([prompts, forced], dim=1), P, P + n_tokens,
-        patches=patches)
+        cfg, params, torch.cat([prompts, forced], dim=1), P, P + n_tokens, **stub)
     summary["fp32_check"]["s"] = time.perf_counter() - t0
 
     # One profiled decode step, from a fresh prefill and one warm step.
-    batch = {"tokens": prompts} if patches is None else {"tokens": prompts,
-                                                          "patches": patches}
+    batch = {"tokens": prompts, **stub}
     logits, cache = model.prefill(params, batch, max_len=P + n_tokens)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     logits, cache = model.decode_step(params, {"tokens": tok, "pos": pre + P,
@@ -2631,11 +2898,14 @@ def time_attention(fa, MaskSpec, gen):
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
-def time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv=None):
+def time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv=None, Sq=None,
+                         kind=None):
     """The bf16 kernel at a training path's attention shape: batch ``B``,
     ``SEQ`` positions (a vlm's text behind its patches, under the prefix
     mask; causal otherwise) over ``Skv`` keys (default as many; more for a
-    serving prefill into its cache, whose last rows the mask removes);
+    serving prefill into its cache, whose last rows the mask removes), or
+    ``Sq`` queries under the mask ``kind`` (Whisper's encoder and
+    cross-attention, full);
     beside it the plain version and ``scaled_dot_product_attention`` with
     the same mask as an explicit boolean mask (checked against the plain
     version at ``_tol``). The bound counts the (q, k) pairs the mask
@@ -2644,9 +2914,9 @@ def time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv=None):
 
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pre = prefix_rows(cfg)
-    S = SEQ + pre
+    S = SEQ + pre if Sq is None else Sq
     Skv = S if Skv is None else Skv
-    kind = "prefix" if pre else "causal"
+    kind = kind or ("prefix" if pre else "causal")
     bf16 = torch.bfloat16
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(bf16)
     k, v = (torch.randn((B, Skv, K, hd), generator=gen, device="cuda").to(bf16)
@@ -2761,12 +3031,14 @@ def _per_launch(fn, sets, reps=5):
 
 
 def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
-                          window=0, n_sets=None):
+                          window=0, n_sets=None, cross=False):
     """The bf16 kernel at a serving run's decode shape (batch ``B``, a cache
     of ``P + n_tokens``), one query row over the whole cache at the middle
     of the decode's positions, with the config's scale and softcap and the
     layer's ``window``, on one cache per layer (``n_sets``; default the
-    config's layers, or Zamba2's applications of its shared block); beside
+    config's layers, or Zamba2's applications of its shared block); with
+    ``cross``, an encdec decode step's cross-attention instead: one query
+    row over the ``enc_len`` rows of the cross cache, full; beside
     it the plain version and ``scaled_dot_product_attention`` with the same
     mask (checked against the plain version at ``_tol``), which has no
     softcap (None for a config with one). The bound counts the cache rows
@@ -2776,8 +3048,9 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if n_sets is None:
         n_sets = zamba2.n_shared_apps(cfg) if cfg.family == "hybrid" else cfg.n_layers
-    cache_len = prefix_rows(cfg) + P + n_tokens
-    q_offset = prefix_rows(cfg) + P + n_tokens // 2
+    cache_len = cfg.enc_len if cross else prefix_rows(cfg) + P + n_tokens
+    q_offset = 0 if cross else prefix_rows(cfg) + P + n_tokens // 2
+    kind = "full" if cross else "causal"
     bf16 = torch.bfloat16
     sets = [(torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(bf16),
              torch.randn((B, cache_len, K, hd), generator=gen, device="cuda").to(bf16),
@@ -2785,16 +3058,16 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
             for _ in range(n_sets)]
     scale = cfg.query_scale or hd ** -0.5
     softcap = cfg.attn_softcap
-    spec = MaskSpec("causal", window=window)
+    spec = MaskSpec(kind, window=window)
     rows = torch.arange(cache_len, device="cuda")
-    admitted = rows <= q_offset
+    admitted = (rows <= q_offset) | cross
     if window:
         admitted &= q_offset - rows < window
     mask = admitted[None, None, None, :]
 
     def kernel(q, k, v):
         return fa.flash_attention_kernel(q, k, v, scale=scale, softcap=softcap,
-                                         window=window, q_offset=q_offset)
+                                         kind=kind, window=window, q_offset=q_offset)
 
     def plain(q, k, v):
         return fa.attention_plain(q, k, v, spec, scale=scale, softcap=softcap,
@@ -2821,8 +3094,8 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
     nbytes = 2 * (B * H * hd + 2 * B * n_kv * K * hd + B * H * hd)
     flops = 4 * B * H * hd * n_kv
     del sets
-    return dict(model=name, shape=[B, 1, cache_len, H, K, hd], q_offset=q_offset,
-                window=window, softcap=softcap, scale=scale, admitted_rows=n_kv,
+    return dict(model=name, shape=[B, 1, cache_len, H, K, hd], mask=kind,
+                q_offset=q_offset, window=window, softcap=softcap, scale=scale, admitted_rows=n_kv,
                 ms=ms, window_ms=window_ms, plain_ms=plain_ms,
                 plain_window_ms=plain_window, library_ms=library_ms,
                 library_window_ms=library_window,
@@ -3720,15 +3993,22 @@ def main():
     times["flash_attention"] = time_attention(fa, MaskSpec, gen)
     for name in PATHS:
         cfg = path_config(name)
-        if cfg.family not in ("vlm", "moe"):
+        if cfg.family not in ("vlm", "moe", "encdec"):
             continue
         # The path's global batch and the serving runs' batch of 8; for
-        # Arctic (GQA 7:1) also the serving prefill into its cache.
-        shapes = [(B, None) for B in sorted({path_batches(name)[0], SERVE_BATCH})]
+        # Arctic (GQA 7:1) and Kimi (8:1, hd 112) also the serving prefill
+        # into its cache; for Whisper, at the batch of 8, its encoder's,
+        # decoder's and cross-attention's shapes.
+        shapes = [(B, None, None, None)
+                  for B in sorted({path_batches(name)[0], SERVE_BATCH})]
         if cfg.family == "moe":
-            shapes.append((SERVE_BATCH, SERVE_CACHE))
-        for B, Skv in shapes:
-            t = time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv)
+            shapes.append((SERVE_BATCH, SERVE_CACHE, None, None))
+        if cfg.family == "encdec":
+            shapes = [(c[0], c[2], c[1], c[6])
+                      for _, c in whisper_attention_shapes(cfg, SERVE_BATCH,
+                                                           path_seq(name))]
+        for B, Skv, Sq, kind in shapes:
+            t = time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv, Sq, kind)
             bound_ms, bound_by = t.pop("bound")
             log(json.dumps({"kernel_train_shape": "flash_attention", **t,
                             "bound_ms": bound_ms, "bound_by": bound_by}))
@@ -3750,6 +4030,10 @@ def main():
             decode.append(("flash_attention", time_decode_attention,
                            (fa, MaskSpec, gen, label + kind, cfg, B, P, n, window,
                             n_sets)))
+        if cfg.family == "encdec":
+            decode.append(("flash_attention", time_decode_attention,
+                           (fa, MaskSpec, gen, label + " cross", cfg, B, P, n, 0,
+                            None, True)))
     decode += [("wkv6", time_decode_wkv6, (W, gen)),
                ("ssd", time_decode_ssd, (SD, gen))]
     for name, timer, args in decode:

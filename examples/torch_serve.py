@@ -1,7 +1,8 @@
 """Serving demo on the PyTorch port: batched prefill + greedy decode with
 a KV cache (the dense family: TinyLlama, GPT-2, granite, llama3, gemma2;
-PaliGemma, whose cache starts with its image patches' rows; Arctic,
-whose layers route to experts),
+PaliGemma, whose cache starts with its image patches' rows; Arctic and
+Kimi-K2, whose layers route to experts; Whisper, whose prefill fills a
+cross-KV cache from its frames),
 a recurrent state (RWKV-6) or both (Zamba2: a KV cache per application of
 its shared attention block beside the Mamba2 blocks' conv and SSM states),
 the twin of ``examples/serve.py``.
@@ -14,8 +15,9 @@ for the whole generation, then decode tokens autoregressively through
 
 The default arch is ``tinyllama-1.1b``, as in the JAX demo; ``--arch``
 takes ``gpt2``, ``granite-34b``, ``llama3-405b``, ``gemma2-27b``,
-``rwkv6-1.6b``, ``zamba2-1.2b`` and ``paligemma-3b`` (seeded random patch
-embeddings in front of the prompts) too. Runs on CUDA unless ``--device``
+``rwkv6-1.6b``, ``zamba2-1.2b``, ``arctic-480b``, ``kimi-k2-1t-a32b``,
+``paligemma-3b`` (seeded random patch embeddings in front of the prompts)
+and ``whisper-small`` (seeded random frame embeddings) too. Runs on CUDA unless ``--device``
 names another device (``cpu`` runs the kernels' plain versions).
 """
 import argparse
@@ -56,7 +58,10 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab, (B, S), generator=host)
     patches = (torch.randn((B, cfg.n_patches, cfg.d_model), generator=host) * 0.02
                if cfg.family == "vlm" else None)
-    gen = generate(model, params, prompts, args.tokens, patches=patches).tokens.cpu()
+    frames = (torch.randn((B, cfg.enc_len, cfg.d_model), generator=host) * 0.02
+              if cfg.family == "encdec" else None)
+    gen = generate(model, params, prompts, args.tokens, patches=patches,
+                   frames=frames).tokens.cpu()
 
     print(f"arch={cfg.name} prefill={S} decode={args.tokens} batch={B}")
     for b in range(B):

@@ -22,10 +22,13 @@
 //   would need 263,168 bytes, past the 232,448 a block may opt in to; 2
 //   need 197,632). Every
 //   tile sits in shared memory in the 128-byte-swizzle layout that TMA
-//   would write (16-byte piece c of row r at c ^ (r % 8)), with head dims
-//   below 64 zero-padded to one 128-byte row, so the products read it
-//   without bank conflicts:
-//     S = Q Kᵀ: wgmma.m64n64k16, Q and K K-major from shared memory;
+//   would write (16-byte piece c of row r at c ^ (r % 8)), in panels of 64
+//   columns (one 128-byte row each), the head dim zero-padded to a whole
+//   number of panels (16 and 32 to one, kimi's 112 to two), so the products
+//   read it without bank conflicts:
+//     S = Q Kᵀ: wgmma.m64n64k16, Q and K K-major from shared memory, one
+//       k-step per 16 columns of the real head dim (7 at hd 112): the
+//       padding columns are zero in Q and K alike and would add only zeros;
 //     O += P V: wgmma.m64n64k16 with P (the score accumulators rounded to
 //       bf16, whose layout is the A fragment) in registers, and V read
 //       MN-major from the same swizzled rows through the transpose bit, so
@@ -126,6 +129,10 @@ constexpr int kWgKeys = 64;     // keys per KV tile
 // where Q and three stages would not fit in a block's shared memory.
 template <int HD>
 __host__ __device__ constexpr int stages_for() { return HD >= 256 ? 2 : 3; }
+// The head dim padded to whole 64-column panels (128-byte swizzled rows):
+// 16, 32 and 64 to 64, 112 and 128 to 128, 256 stays.
+template <int HD>
+__host__ __device__ constexpr int hd_padded() { return (HD + 63) / 64 * 64; }
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -264,11 +271,15 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
                              __nv_bfloat16* __restrict__ o, Params p) {
-  constexpr int HDP = HD < 64 ? 64 : HD;  // padded to whole 128-byte rows
+  static_assert(HD % 16 == 0, "a wgmma k-step is 16 columns of the head dim");
+  constexpr int HDP = hd_padded<HD>();
   constexpr int kPanels = HDP / 64;
   constexpr int kQBytes = kWgRows * HDP * 2;
   constexpr int kKVBytes = kWgKeys * HDP * 2;
-  constexpr int kSteps = HDP / 16;  // k-steps of QKᵀ
+  // k-steps of QKᵀ: the real head dim's, HD / 16, not HDP / 16 (the
+  // padding columns are zero in both operands, so their steps would add
+  // only zeros to the fp32 scores).
+  constexpr int kSteps = HD / 16;
   constexpr int kStages = stages_for<HD>();
   extern __shared__ unsigned char smem_raw[];
   // Swizzle atoms are 1024 bytes and must start 1024-byte aligned.
@@ -485,6 +496,8 @@ flash_attention_fma_kernel(const float* __restrict__ q,
                            const float* __restrict__ v, float* __restrict__ o,
                            Params p) {
   constexpr int kVec = HD / 4;                         // float4s per row
+  static_assert(kVec % kThreadsPerRow == 0,
+                "each of a row's threads holds whole float4s (hd 112: 7)");
   constexpr int kVecPerThread = kVec / kThreadsPerRow;  // HD / 16
   extern __shared__ float4 smem[];
   float4* ks = smem;                    // [kBlockK][kVec]
@@ -613,7 +626,7 @@ unsigned n_blocks(const Params& p) {
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const Params& p, cudaStream_t stream) {
-  constexpr int HDP = HD < 64 ? 64 : HD;
+  constexpr int HDP = hd_padded<HD>();
   // Q, the K and V rings, and the slack that aligns them to 1024 bytes.
   constexpr int kSmem = (kWgRows + 2 * stages_for<HD>() * kWgKeys) * HDP * 2 + 1024;
   static_assert(kSmem <= 232448, "past the H100's shared memory per block");
@@ -669,6 +682,7 @@ extern "C" int repro_flash_attention_fwd(
     case 16: return launch<16>(dtype, q, k, v, o, p, st);
     case 32: return launch<32>(dtype, q, k, v, o, p, st);
     case 64: return launch<64>(dtype, q, k, v, o, p, st);
+    case 112: return launch<112>(dtype, q, k, v, o, p, st);
     case 128: return launch<128>(dtype, q, k, v, o, p, st);
     case 256: return launch<256>(dtype, q, k, v, o, p, st);
     default: return (int)cudaErrorInvalidValue;

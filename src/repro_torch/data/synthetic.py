@@ -58,6 +58,29 @@ class TokenStream:
         return np.stack([self.example(int(i) % self.n_examples) for i in indices])
 
 
+@dataclass
+class ImageStream:
+    """CIFAR-like class-conditional blobs (32x32x3, 10 classes)."""
+    n_classes: int = 10
+    n_examples: int = 4096
+    seed: int = 0
+    shape: tuple = (32, 32, 3)
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        self._means = rng.randn(self.n_classes, *self.shape).astype(np.float32)
+
+    def example(self, idx: int):
+        rng = np.random.RandomState(self.seed * 7_000_003 + idx)
+        y = idx % self.n_classes
+        x = self._means[y] + 0.35 * rng.randn(*self.shape).astype(np.float32)
+        return x, y
+
+    def batch(self, indices: Sequence[int]):
+        xs, ys = zip(*(self.example(int(i) % self.n_examples) for i in indices))
+        return np.stack(xs), np.asarray(ys, np.int32)
+
+
 class ShardedLoader:
     """Per-node batch iterator over a node's split; resharding on membership
     change is just calling ``reshard`` with the new node set."""

@@ -227,7 +227,7 @@ class ElasticTrainer:
 
     def step(self, batch: dict):
         """batch arrays lead with global_batch (= per_device × n_active):
-        the tokens and, for the vlm family, the patches. Every array goes
+        the tokens and a vlm's patches or an encdec model's frames. Every array goes
         to the model's device and the whole dict to the step, as the JAX
         trainer puts the whole batch on its mesh."""
         n = len(self.active)

@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"causal": 0, "full": 1, "prefix": 2}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 NEG_INF = -2.0e38
 
 

@@ -1,8 +1,9 @@
 """Serving launcher of the port, from ``repro/launch/serve.py``: batched
 prefill + greedy autoregressive decode with a KV cache (dense: GPT-2,
 TinyLlama, granite, llama3, gemma2; vlm: PaliGemma, whose cache holds the
-image patches' rows before the prompt's; moe: Arctic), a recurrent state
-(ssm) or both
+image patches' rows before the prompt's; moe: Arctic, Kimi-K2; encdec:
+Whisper, whose prefill also fills a cross-KV cache from the frames), a
+recurrent state (ssm) or both
 (hybrid: one KV cache per application of the shared attention block, and
 each Mamba2 block's conv and SSM states), request after request, with
 per-phase timing.
@@ -15,10 +16,10 @@ flags keep their defaults and meanings, ``--arch`` defaulting to
 ``tinyllama-1.1b`` as there. ``--temperature`` is accepted and, as there,
 unused: decoding is greedy. ``--device`` is the port's own: CUDA unless
 given, and asking for CUDA where there is none raises
-(``repro_torch.device.resolve_device``). An arch the port does not have
-yet (whisper-small, kimi-k2-1t-a32b) exits non-zero with get_config's
-unknown-arch message. Arctic (moe) is served as the dense family is, its
-layers' experts routing each call's tokens as one group.
+(``repro_torch.device.resolve_device``). An arch that no config names
+exits non-zero with get_config's unknown-arch message. Arctic and Kimi-K2
+(moe) are served as the dense family is, their layers' experts routing
+each call's tokens as one group.
 
 PaliGemma (``--arch paligemma-3b``) is served with seeded random patch
 embeddings (normals × 0.02, as the training batches make them), where the
@@ -26,6 +27,12 @@ JAX launcher passes zeros, and each decode step writes the cache row after
 the patches and the prompt, ``n_patches + S + t``. The JAX launcher
 decodes at ``S + t``, which overwrites rows its prefill filled and rotates
 the step at the wrong RoPE position.
+
+Whisper (``--arch whisper-small``) is served with seeded random frame
+embeddings (normals × 0.02, as the training batches make them), where the
+JAX launcher passes zeros: they go through the encoder once, in the
+prefill, into each decoder layer's cross-KV cache, which every decode step
+reads as it is; the self cache holds the prompt and the new tokens.
 """
 from __future__ import annotations
 
@@ -62,14 +69,17 @@ def _sync(device):
 
 
 def generate(model, params, prompts, n_tokens: int, *, patches=None,
-             stream: bool = False, keep_logits: bool = False) -> Generation:
+             frames=None, stream: bool = False,
+             keep_logits: bool = False) -> Generation:
     """Prefill ``prompts`` (B, S) into a cache of ``S + n_tokens``
     positions (for every family: the JAX launcher serves the hybrid one
     through its ``Model.prefill``, which sizes the cache at S), then
     ``n_tokens - 1`` greedy decode steps: ``n_tokens`` new tokens. A vlm
     takes ``patches`` (B, n_patches, d): they are prefilled in front of
     the prompt, the cache holds ``n_patches`` rows more, and step ``t``
-    decodes at row ``n_patches + S + t``. The
+    decodes at row ``n_patches + S + t``. An encdec takes ``frames`` (B,
+    enc_len, d): the prefill runs them through the encoder into the
+    cross-KV cache. The
     decode loop is timed as one window closed by one sync, as the JAX
     launcher times it; with ``stream`` each step is closed by a sync and
     timed, as for a server that hands out each token as it comes, and the
@@ -83,6 +93,10 @@ def generate(model, params, prompts, n_tokens: int, *, patches=None,
             raise ValueError("serving a vlm needs its patches")
         batch["patches"] = torch.as_tensor(patches, device=dev)
         prefix = model.cfg.n_patches
+    if model.cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("serving an encdec model needs its frames")
+        batch["frames"] = torch.as_tensor(frames, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, max_len=S + n_tokens)
@@ -140,7 +154,9 @@ def main(argv=None):
         prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen)
         patches = (torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen) * 0.02
                    if cfg.family == "vlm" else None)
-        run = generate(model, params, prompts, T, patches=patches)
+        frames = (torch.randn((B, cfg.enc_len, cfg.d_model), generator=gen) * 0.02
+                  if cfg.family == "encdec" else None)
+        run = generate(model, params, prompts, T, patches=patches, frames=frames)
         print(f"req {req}: prefill {run.prefill_ms:.0f} ms | decode {T} toks "
               f"{run.decode_ms:.0f} ms ({run.decode_ms / max(T - 1, 1):.1f} ms/tok) | "
               f"sample {run.tokens[0, :8].tolist()}")

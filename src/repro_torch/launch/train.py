@@ -22,10 +22,11 @@ Scale knobs live in the configs (``repro_torch/configs/<arch>.py``); the
 default ``--reduced`` uses the same ``reduced()`` family transform as the
 tests, so the launcher runs anywhere. ``--arch`` takes every config of
 ``repro_torch.configs`` (the dense family, RWKV-6, Zamba2, PaliGemma,
-Arctic); one the port does not have yet (whisper-small, kimi-k2-1t-a32b)
-exits non-zero with get_config's unknown-arch message. The elastic loop gives a vlm its patches with each step's
-tokens; the JAX launcher's elastic loop passes the tokens alone, which
-PaliGemma's loss cannot take (``KeyError: 'patches'``).
+Arctic, Kimi-K2, Whisper); a name that no config has exits non-zero with
+get_config's unknown-arch message. The elastic loop gives a vlm its
+patches and an encdec model its frames with each step's tokens; the JAX
+launcher's elastic loop passes the tokens alone, which PaliGemma's and
+Whisper's losses cannot take (``KeyError: 'patches'``, ``'frames'``).
 """
 from __future__ import annotations
 
@@ -96,7 +97,8 @@ def train_elastic(model, cell: ShapeCell, steps: int, *, state=None,
     devices, starting on half of them with a per-device batch of
     ``cell.global_batch // POOL_SIZE``: a join before step ``steps // 3``
     and a leave before step ``2 * steps // 3``, where the pool allows;
-    batches from one ``TokenStream``, with a vlm's patches made as
+    batches from one ``TokenStream``, with a vlm's patches or an encdec
+    model's frames made as
     ``make_train_batch`` makes them (``stub_inputs``, seeded with the
     step); checkpoints as in :func:`train_plain`. ``state`` is installed
     in place of the seeded init."""

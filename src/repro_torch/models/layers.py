@@ -9,7 +9,9 @@ Initialisers take an explicit ``torch.Generator`` and device; they cannot
 reproduce ``jax.random`` draws, so tests convert JAX-initialised states
 instead (``repro_torch.convert``).
 
-Not ported yet: cross-attention (``static_kv``).
+``attention_sublayer`` also runs Whisper's cross-attention: K/V projected
+from ``kv_x`` (no RoPE on either side), or read as they are from a
+precomputed cross cache (``static_kv``).
 """
 from __future__ import annotations
 
@@ -151,27 +153,41 @@ def _write_cache(cache, new, pos: int):
 
 
 def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
-                       cache_kv=None, cache_pos=None, is_local=None):
-    """Self-attention sublayer. x: (B, S, d) normed input; ``positions``
-    (S,) or (B, S) feed RoPE when ``cfg.positions == "rope"``.
+                       kv_x=None, cache_kv=None, cache_pos=None, static_kv=False,
+                       is_local=None):
+    """Attention sublayer. x: (B, S, d) normed input; ``positions`` (S,)
+    or (B, S) feed RoPE when ``cfg.positions == "rope"`` and K/V come from
+    ``x``. ``kv_x`` (B, T, d): the source of K/V instead of ``x``
+    (cross-attention; RoPE on neither side).
 
-    ``cache_kv``: (k, v) of shape (B, Smax, K, hd). This step's K/V are
-    written into them in place at ``cache_pos`` (an int); a prefill that
-    fills the whole cache (S == Smax) attends over the fresh K/V, anything
-    else over the whole cache with ``q_offset = cache_pos`` (causality
-    masks the rows not written yet). Writing past ``Smax`` raises; the JAX
-    reference clamps the write start instead. Returns ((B, S, d), cache_kv,
-    the same tensors, or None without a cache)."""
+    ``cache_kv``: (k, v) of shape (B, Smax, K, hd). With ``static_kv`` they
+    are K/V precomputed from the cross source and are attended as they
+    are, at ``q_offset`` 0. Otherwise this step's K/V are written into them
+    in place at ``cache_pos`` (an int); a prefill that fills the whole
+    cache (S == Smax) attends over the fresh K/V, anything else over the
+    whole cache with ``q_offset = cache_pos`` (causality masks the rows not
+    written yet). Writing past ``Smax`` raises; the JAX reference clamps
+    the write start instead. Returns ((B, S, d), cache_kv, the same
+    tensors, or None without a cache)."""
     B, S, _ = x.shape
     dt = x.dtype
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ params["wk"].to(dt)).reshape(B, S, K, hd)
-    v = (x @ params["wv"].to(dt)).reshape(B, S, K, hd)
-    if cfg.positions == "rope":
+    rotate = cfg.positions == "rope" and kv_x is None
+    if rotate:
         if positions is None:
             raise ValueError("RoPE attention needs positions")
         q = rope(q, positions, cfg.rope_theta)
+    scale = cfg.query_scale if cfg.query_scale else 1.0 / math.sqrt(hd)
+    if cache_kv is not None and static_kv:
+        k, v = (c.to(dt) for c in cache_kv)
+        o = blocked_attention(q, k, v, spec, scale=scale, softcap=cfg.attn_softcap,
+                              is_local=is_local)
+        return o.reshape(B, S, H * hd) @ params["wo"].to(dt), cache_kv
+    src = x if kv_x is None else kv_x
+    k = (src @ params["wk"].to(dt)).reshape(B, src.shape[1], K, hd)
+    v = (src @ params["wv"].to(dt)).reshape(B, src.shape[1], K, hd)
+    if rotate:
         k = rope(k, positions, cfg.rope_theta)
     q_offset = 0
     if cache_kv is not None:
@@ -188,7 +204,6 @@ def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
         if S != smax:
             k, v = ck.to(dt), cv.to(dt)
             q_offset = cache_pos
-    scale = cfg.query_scale if cfg.query_scale else 1.0 / math.sqrt(hd)
     o = blocked_attention(q, k, v, spec, scale=scale, softcap=cfg.attn_softcap,
                           q_offset=q_offset, is_local=is_local)
     return o.reshape(B, S, H * hd) @ params["wo"].to(dt), cache_kv

@@ -9,6 +9,12 @@ the optimizer state (the moments ``m`` and ``v``, adamw8bit's codes and
 scales, sgdm's ``mu``) and the ``step`` counter **in place** and returns
 the same state dict, where JAX builds new arrays. That saves copies of the
 moments per step; callers that need the old state clone it first.
+
+``start(state, lr_scale)`` is ``update`` one leaf at a time: it advances
+the step counter and returns ``update_leaf(path, p, g)``, the update of
+the param ``p`` at ``path`` from its gradient ``g``, advancing that leaf's
+moments in place. ``update`` is ``start`` applied to every leaf, so the
+two give the same bits.
 """
 from __future__ import annotations
 
@@ -22,6 +28,28 @@ from repro_torch import tree as T
 class Optimizer(NamedTuple):
     init: callable
     update: callable
+    start: callable
+
+
+def at(tree, path):
+    """The node of ``tree`` at ``path`` (a tuple of keys)."""
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _optimizer(init, start):
+    """The optimizer whose whole-tree ``update`` runs ``start``'s
+    per-leaf update on every leaf."""
+
+    @torch.no_grad()
+    def update(grads, state, params, lr_scale=1.0):
+        update_leaf = start(state, lr_scale)
+        paths, leaves = zip(*T.flatten_with_paths(params))
+        return T.unflatten(paths, [update_leaf(path, p, at(grads, path))
+                                   for path, p in zip(paths, leaves)]), state
+
+    return Optimizer(init, update, start)
 
 
 def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
@@ -33,7 +61,7 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
         return {"m": zeros, "v": T.tree_map(torch.clone, zeros), "step": step}
 
     @torch.no_grad()
-    def update(grads, state, params, lr_scale=1.0):
+    def start(state, lr_scale=1.0):
         state["step"].add_(1)
         stepf = state["step"].to(torch.float32)
         sf = torch.tensor(lr_scale, dtype=torch.float32, device=stepf.device)
@@ -41,7 +69,9 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
         bc2 = 1.0 - torch.pow(b2, stepf)
         lr_t = lr * sf
 
-        def upd(g, m, v, p):
+        @torch.no_grad()
+        def update_leaf(path, p, g):
+            m, v = at(state["m"], path), at(state["v"], path)
             g = g.to(torch.float32)
             # m <- b1*m + (1-b1)*g and v <- b2*v + (1-b2)*g², in place.
             m.mul_(b1).add_((1 - b1) * g)
@@ -51,10 +81,9 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
             u = mh / (torch.sqrt(vh) + eps) + weight_decay * p.to(torch.float32)
             return (lr_t * u).to(p.dtype)
 
-        updates = T.tree_map(upd, grads, state["m"], state["v"], params)
-        return updates, state
+        return update_leaf
 
-    return Optimizer(init, update)
+    return _optimizer(init, start)
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +142,7 @@ def adamw8bit(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
                 "step": step}
 
     @torch.no_grad()
-    def update(grads, state, params, lr_scale=1.0):
+    def start(state, lr_scale=1.0):
         state["step"].add_(1)
         stepf = state["step"].to(torch.float32)
         sf = torch.tensor(lr_scale, dtype=torch.float32, device=stepf.device)
@@ -121,14 +150,16 @@ def adamw8bit(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
         bc2 = 1.0 - torch.pow(b2, stepf)
         lr_t = lr * sf
 
-        # Walked by the params' structure: each leaf meets its gradient and
-        # its two {"codes", "scale"} dicts.
-        def upd(p, g, mq, vq):
+        # Each leaf meets its gradient and its two {"codes", "scale"} dicts.
+        @torch.no_grad()
+        def update_leaf(path, p, g):
+            mq, vq = at(state["m"], path), at(state["v"], path)
             g = g.to(torch.float32)
             m = _dq8_static(mq["codes"], mq["scale"], p.shape)
             v = _dq8_static(vq["codes"], vq["scale"], p.shape)
             m2 = b1 * m + (1 - b1) * g
             v2 = b2 * v + (1 - b2) * torch.square(g)
+            del m, v
             u = (m2 / bc1) / (torch.sqrt(torch.clamp(v2 / bc2, min=0.0)) + eps)
             u = u + weight_decay * p.to(torch.float32)
             for q, x in ((mq, m2), (vq, v2)):
@@ -137,9 +168,9 @@ def adamw8bit(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
                 q["scale"].copy_(scale)
             return (lr_t * u).to(p.dtype)
 
-        return T.tree_map(upd, params, grads, state["m"], state["v"]), state
+        return update_leaf
 
-    return Optimizer(init, update)
+    return _optimizer(init, start)
 
 
 # ---------------------------------------------------------------------------
@@ -156,21 +187,22 @@ def sgdm(lr=0.1, momentum=0.9, weight_decay=0.0):
         return {"mu": mu, "step": step}
 
     @torch.no_grad()
-    def update(grads, state, params, lr_scale=1.0):
+    def start(state, lr_scale=1.0):
         sf = torch.tensor(lr_scale, dtype=torch.float32,
                           device=state["step"].device)
         lr_t = lr * sf
+        state["step"].add_(1)  # the step counter enters no update
 
-        def upd(g, mu, p):
+        @torch.no_grad()
+        def update_leaf(path, p, g):
+            mu = at(state["mu"], path)
             g = g.to(torch.float32) + weight_decay * p.to(torch.float32)
             mu.mul_(momentum).add_(g)  # mu <- momentum*mu + g, in place
             return (lr_t * mu).to(p.dtype)
 
-        updates = T.tree_map(upd, grads, state["mu"], params)
-        state["step"].add_(1)
-        return updates, state
+        return update_leaf
 
-    return Optimizer(init, update)
+    return _optimizer(init, start)
 
 
 def make_optimizer(cfg):
@@ -186,7 +218,16 @@ def global_norm(tree) -> torch.Tensor:
                           for l in T.leaves(tree)))
 
 
+def clip_scale(norm, max_norm):
+    """The factor that clips gradients of global norm ``norm`` to ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def clip_leaf(g, scale):
+    return (g.to(torch.float32) * scale).to(g.dtype)
+
+
 def clip_by_global_norm(tree, max_norm):
     n = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
-    return T.tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), tree), n
+    scale = clip_scale(n, max_norm)
+    return T.tree_map(lambda g: clip_leaf(g, scale), tree), n

@@ -12,16 +12,19 @@ Path = Tuple[str, ...]
 def flatten_with_paths(tree) -> List[Tuple[Path, Any]]:
     """``[(path, leaf), ...]`` with dict keys visited in sorted order."""
     out: List[Tuple[Path, Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key], path + (key,))
-        else:
-            out.append((path, node))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node, path, out):
+    # Module-level: a nested function that calls itself sits in a reference
+    # cycle with its closure, ``out`` included, so every leaf flattened
+    # would stay alive until the garbage collector next ran.
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], path + (key,), out)
+    else:
+        out.append((path, node))
 
 
 def leaves(tree) -> list:

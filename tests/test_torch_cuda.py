@@ -62,6 +62,26 @@ ATTN_CASES = chip_smoke.attention_cases() + [
      0, None),
     ("hd 256 decode bf16", (3, 1, 777, 8, 1, 256, "causal", 0, 0, 0.0, bf16), 1e4,
      700, None),
+    # Head dim 112 (Kimi-K2's, two panels, the second half padding): GQA
+    # 64:8 decode rows over a ragged cache in bf16 and fp32, a ragged
+    # causal block in fp32, a prefix with a window in bf16.
+    ("hd 112 decode bf16", (3, 1, 777, 64, 8, 112, "causal", 0, 0, 0.0, bf16), 1e4,
+     700, None),
+    ("hd 112 decode fp32", (2, 1, 300, 64, 8, 112, "causal", 0, 0, 0.0, f32), 1e4,
+     299, None),
+    ("hd 112 ragged fp32", (1, 100, 100, 8, 1, 112, "causal", 0, 0, 0.0, f32), 1e4,
+     0, None),
+    ("hd 112 prefix window", (1, 300, 300, 4, 1, 112, "prefix", 64, 100, 0.0, bf16),
+     0.0, 0, None),
+    # Whisper's shapes, ragged: the encoder's full attention over 1,500
+    # frames in fp32 (its fp32 serving check), cross-attention from 7
+    # queries and from one over them.
+    ("whisper encoder fp32", (1, 1500, 1500, 12, 12, 64, "full", 0, 0, 0.0, f32), 0.0,
+     0, None),
+    ("whisper cross fp32", (2, 7, 1500, 12, 12, 64, "full", 0, 0, 0.0, f32), 0.0, 0,
+     None),
+    ("whisper cross decode", (3, 1, 1500, 12, 12, 64, "full", 0, 0, 0.0, bf16), 0.0, 0,
+     None),
 ]
 WKV_CASES = chip_smoke.wkv6_cases() + [
     ("ragged S", (1, 100, 3, 16, (-1.0, 0.5), f32, True, 64, False)),
@@ -284,9 +304,9 @@ def test_profile_reader_matches_key_averages(gen):
 
 
 #: the served archs, reduced: the serving runs' (GPT-2, RWKV-6, Zamba2,
-#: TinyLlama, PaliGemma), the dense configs the card runs only reduced
-#: (granite, llama3), and gemma2 (window 8: its local and global layers
-#: differ).
+#: TinyLlama, PaliGemma, Arctic, Kimi, Whisper), the dense configs the card
+#: runs only reduced (granite, llama3), and gemma2 (window 8: its local and
+#: global layers differ).
 SERVE_ARCHS = chip_smoke.SERVE_PATHS + chip_smoke.REDUCED_DENSE + ("gemma2-27b",)
 #: and Zamba2 at 5 blocks: 3 applications of the shared block (the reduced
 #: config has one), a ragged last segment.
@@ -295,7 +315,9 @@ SERVE_CASES = SERVE_ARCHS + ("zamba2-1.2b, 5 blocks",)
 
 def _served(case):
     """The reduced config of ``case``, its params (seeded), tokens (a
-    64-token prompt and ``FP32_DECODE_STEPS`` more) and a vlm's patches
+    64-token prompt and ``FP32_DECODE_STEPS`` more) and the stubbed inputs
+    as keyword arguments (a vlm's ``patches``, an encdec model's
+    ``frames``)
     (None for the other families)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -307,8 +329,9 @@ def _served(case):
     params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, size=(2, 64 + chip_smoke.FP32_DECODE_STEPS))).cuda()
-    patches = chip_smoke.patches_for(cfg, 2, np.random.default_rng(1))
-    return cfg, params, tokens, None if patches is None else torch.from_numpy(patches).cuda()
+    stub = {key: torch.from_numpy(x).cuda()
+            for key, x in chip_smoke.stub_for(cfg, 2, np.random.default_rng(1)).items()}
+    return cfg, params, tokens, stub
 
 
 @pytest.mark.parametrize("case", SERVE_CASES)
@@ -317,13 +340,13 @@ def test_serve_fp32_cached_matches_cache_free(gen, case):
     fp32 prefill and forced decode steps through the kernels against the
     cache-free fp32 forward, within ``serve_tol``, and each planted fault
     outside it."""
-    cfg, params, tokens, patches = _served(case)
+    cfg, params, tokens, stub = _served(case)
     # A vlm's cache holds no spare row, so that one made without the
     # patches' rows overflows (its planted fault).
-    cache_len = 64 + chip_smoke.FP32_DECODE_STEPS if patches is not None else 80
+    cache_len = 64 + chip_smoke.FP32_DECODE_STEPS if "patches" in stub else 80
     ops.reset_launches()
     out = chip_smoke.serve_fp32_check(cfg, params, tokens, 64, cache_len,
-                                      patches=patches)
+                                      **stub)
     assert out["outside"] == 0
     assert set(out["faults"]) == set(chip_smoke.serve_faults(cfg))
     assert all("raised" in f or f["outside"] > 0 for f in out["faults"].values())
@@ -340,14 +363,15 @@ def _cpu(tree):
 #: cores, so it rounds the probabilities to bf16 (the kernel is held to its
 #: plain version at ``_tol`` call by call, ``chip_smoke.attention_cases``),
 #: and over these models' untied unembedding that rounding moves 127
-#: (TinyLlama), 48 (llama3) and 85 (Arctic, routed as on the CPU) of 4,096
-#: logits past ``_tol``, where the card's plain attention (fp32
-#: probabilities) leaves none (PERF.md §6).
+#: (TinyLlama), 48 (llama3), 85 (Arctic, routed as on the CPU) and 91
+#: (Kimi-K2, routed alike) of 4,096 logits past ``_tol``, where the card's
+#: plain attention (fp32 probabilities) leaves none (PERF.md §6).
 #: JAX's XLA attention, which rounds them too, moves the reduced TinyLlama
 #: past ``_tol`` of the port on the CPU the same way
 #: (tests/test_torch_serve.py). Their bf16 comparison runs the plain
 #: attention on the card; fp32 runs the kernel.
-BF16_PROBABILITIES = ("tinyllama-1.1b", "llama3-405b", "arctic-480b")
+BF16_PROBABILITIES = ("tinyllama-1.1b", "llama3-405b", "arctic-480b",
+                      "kimi-k2-1t-a32b")
 CARD_CPU_CASES = [(c, d) for c in SERVE_CASES for d in (f32, bf16)
                   if not (d == bf16 and c in BF16_PROBABILITIES)]
 
@@ -407,7 +431,7 @@ def _flips(card_routes, cpu_routes, tol):
     return flips
 
 
-def _card_against_cpu(cfg, params, tokens, patches, dtype, plain=()):
+def _card_against_cpu(cfg, params, tokens, stub, dtype, plain=()):
     """Forced serving on the card (the kernels in ``plain`` run as their
     plain versions) against the CPU's plain versions, within ``serve_tol``.
     An MoE config's card run routes by the CPU run's choices, call by call,
@@ -416,13 +440,13 @@ def _card_against_cpu(cfg, params, tokens, patches, dtype, plain=()):
     the flips are printed; a flip is never left to the logits' bar."""
     with _Routing() as cpu_routes:
         cpu = chip_smoke.serve_forced(cfg, _cpu(params), tokens.cpu(), 64, 80, dtype,
-                                      patches=None if patches is None else patches.cpu())
+                                      **{key: x.cpu() for key, x in stub.items()})
     on_card = ops._on_card
     ops._on_card = lambda t, what: False if what in plain else on_card(t, what)
     try:
         with _Routing(forced=[idx for _, idx in cpu_routes]) as card_routes:
             card = chip_smoke.serve_forced(cfg, params, tokens, 64, 80, dtype,
-                                           patches=patches)
+                                           **stub)
     finally:
         ops._on_card = on_card
     assert len(card_routes) == len(cpu_routes) == \
@@ -467,16 +491,16 @@ def test_serve_launches_each_layer_once_per_step(gen, arch):
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     prompts = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device="cuda")
-    patches = chip_smoke.patches_for(cfg, 2, np.random.default_rng(1))
-    patches = None if patches is None else torch.from_numpy(patches).cuda()
+    stub = {key: torch.from_numpy(x).cuda()
+            for key, x in chip_smoke.stub_for(cfg, 2, np.random.default_rng(1)).items()}
     ops.reset_launches()
-    run = generate(model, params, prompts, 5, patches=patches, stream=True)
+    run = generate(model, params, prompts, 5, stream=True, **stub)
     assert ops.launches == chip_smoke.serve_launches(cfg, 5)
     assert run.tokens.shape == (2, 5) and len(run.step_ms) == 4
-    window = generate(model, params, prompts, 5, patches=patches)
+    window = generate(model, params, prompts, 5, **stub)
     assert torch.equal(window.tokens, run.tokens) and window.step_ms == []
     if cfg.family != "ssm":
-        batch = {"tokens": prompts, "patches": patches}
+        batch = {"tokens": prompts, **stub}
         _, cache = model.prefill(params, batch, max_len=16)
         end = 16 + chip_smoke.prefix_rows(cfg)
         with pytest.raises(ValueError, match="KV cache overflow"):

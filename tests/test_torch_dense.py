@@ -287,14 +287,19 @@ def test_train_launcher_takes_the_dense_configs(arch, capsys):
 
 
 def test_unported_archs_exit_non_zero(capsys):
-    """An arch the port does not have yet exits non-zero from both
-    launchers, with the launcher's own unknown-arch message (kimi's
-    registered name is ``kimi-k2-1t-a32b``)."""
+    """Every config of the JAX package is in the port, so an unported arch
+    is one neither registry has: it exits non-zero from both launchers,
+    with each launcher's own unknown-arch message."""
+    from repro.configs import list_configs as jax_list_configs
+    from repro_torch.configs import get_config as torch_get_config
     from repro_torch.launch import serve, train
 
-    for arch in ("whisper-small", "kimi-k2-1t-a32b"):
-        assert train.main(["--arch", arch, "--device", "cpu"]) != 0
-        assert serve.main(["--arch", arch, "--device", "cpu"]) != 0
-        err = capsys.readouterr().err
-        assert f"train: unknown arch {arch!r}" in err
-        assert f"serve: unknown arch {arch!r}" in err
+    for name in jax_list_configs():
+        assert torch_get_config(name).name == name
+    arch = "no-such-arch"
+    assert arch not in jax_list_configs()
+    assert train.main(["--arch", arch, "--device", "cpu"]) != 0
+    assert serve.main(["--arch", arch, "--device", "cpu"]) != 0
+    err = capsys.readouterr().err
+    assert f"train: unknown arch {arch!r}" in err
+    assert f"serve: unknown arch {arch!r}" in err

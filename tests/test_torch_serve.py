@@ -705,13 +705,13 @@ def test_generate_streams_or_times_one_window(arch, monkeypatch):
 
 def test_serving_entry_points_need_cuda_without_device(monkeypatch):
     """(h) Without ``--device`` they run on CUDA, and raise where there is
-    none, for every served arch; an arch still unported (whisper-small,
-    whose family the port does not serve) exits non-zero."""
+    none, for every served arch (Whisper and Kimi among them, now that
+    every config is ported); a name no config has exits non-zero."""
     example = _load("examples/torch_serve.py")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main in (serve.main, example.main):
-        for arch in ARCHS:
+        for arch in ARCHS + ("whisper-small", "kimi-k2-1t-a32b"):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 main(["--arch", arch])
-        assert main(["--arch", "whisper-small", "--device", "cpu"]) != 0
+        assert main(["--arch", "no-such-arch", "--device", "cpu"]) != 0
 

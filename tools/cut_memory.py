@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Which cut of a training path fits on one NVIDIA GPU: PaliGemma's depth,
-Snowflake Arctic's layers and experts.
+Snowflake Arctic's and Kimi-K2's layers and experts.
 
     python3 tools/cut_memory.py --arch paligemma-3b [--cuts 18 14 12] [--fixed-segments]
     python3 tools/cut_memory.py --arch arctic-480b [--cuts 3x8 2x8]
+    python3 tools/cut_memory.py --arch kimi-k2-1t-a32b [--cuts 2x16 1x16]
 
 For each cut, in the order given, runs ``chip_smoke.py``'s training path
 of ``--arch`` at full width on that cut: PaliGemma on LAYERS of its layers
 (``chip_smoke.PALIGEMMA_LAYERS``), Arctic on LAYERSxEXPERTS
-(``chip_smoke.ARCTIC_LAYERS``, ``chip_smoke.ARCTIC_EXPERTS``).
+(``chip_smoke.ARCTIC_LAYERS``, ``chip_smoke.ARCTIC_EXPERTS``), Kimi on
+LAYERSxEXPERTS (``chip_smoke.KIMI_LAYERS``, ``chip_smoke.KIMI_EXPERTS``).
 ``main_path`` (3 steps on 2 logical devices, an int8 scale-out, 2 steps on
 3, a scale-in, 2 steps, at the path's per-device batch; exact launches and
 a bit-unchanged state) and ``replica_tier`` (two pushes of the state and a
@@ -31,7 +33,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
-DEFAULT_CUTS = {"paligemma-3b": ["18", "14", "12"], "arctic-480b": ["3x8", "2x8"]}
+DEFAULT_CUTS = {"paligemma-3b": ["18", "14", "12"], "arctic-480b": ["3x8", "2x8"],
+                "kimi-k2-1t-a32b": ["2x16", "1x16"]}
 
 
 def _chip_smoke():
@@ -46,16 +49,22 @@ def _set_cut(cs, arch, cut):
     if arch == "paligemma-3b":
         cs.PALIGEMMA_LAYERS = int(cut)
         return {"n_layers": cs.PALIGEMMA_LAYERS}
-    cs.ARCTIC_LAYERS, cs.ARCTIC_EXPERTS = (int(n) for n in cut.split("x"))
-    return {"n_layers": cs.ARCTIC_LAYERS, "n_experts": cs.ARCTIC_EXPERTS,
-            "n_params": cs.arctic_cut().param_count()}
+    layers, experts = (int(n) for n in cut.split("x"))
+    if arch == "arctic-480b":
+        cs.ARCTIC_LAYERS, cs.ARCTIC_EXPERTS = layers, experts
+        cfg = cs.arctic_cut()
+    else:
+        cs.KIMI_LAYERS, cs.KIMI_EXPERTS = layers, experts
+        cfg = cs.kimi_cut()
+    return {"n_layers": layers, "n_experts": experts, "n_params": cfg.param_count()}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=sorted(DEFAULT_CUTS), required=True)
     ap.add_argument("--cuts", nargs="+",
-                    help="LAYERS (paligemma-3b) or LAYERSxEXPERTS (arctic-480b), "
+                    help="LAYERS (paligemma-3b) or LAYERSxEXPERTS (arctic-480b, "
+                         "kimi-k2-1t-a32b), "
                          "tried in this order")
     ap.add_argument("--fixed-segments", action="store_true")
     args = ap.parse_args()

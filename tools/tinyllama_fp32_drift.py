@@ -23,9 +23,10 @@ out):
     position 1024. The same positions see the same keys; only the number
     of rows of every GEMM differs (8 x 1025 against 8 x 1031), and with it
     the kernel cuBLAS picks;
-(c) the fp32 check itself (``chip_smoke.serve_fp32_check``'s comparison,
-    planted faults left out): max |diff| and the logits outside fp32
-    ``_tol``, with the kernel and with the plain attention on both sides;
+(c) the fp32 check's comparison as ``chip_smoke.serve_fp32_check`` made
+    it before it ran its cached side at the cache-free row counts (planted
+    faults left out): max |diff| and the logits outside fp32 ``_tol``, with
+    the kernel and with the plain attention on both sides;
 (d) cuBLAS alone: for each fp32 product of the path (TinyLlama: K 2,048
     into 2,048, 256 and 5,632; K 5,632 into 2,048; the unembedding's 2,048
     into 32,000), the last 8 rows of X @ W at M = 9,216 (a cache-free
@@ -39,7 +40,9 @@ out):
     summation order;
 (f) (e) with the norms' rows padded the same way (their mean over
     d_model is a reduction whose order PyTorch picks by the row count
-    too): what is left then is neither.
+    too): what is left then is neither. ``serve_fp32_check`` runs this way
+    (``chip_smoke.at_cache_free_rows``, which also pads an MoE's expert
+    products to the cache-free capacity).
 
 Prints one line per reading, then one JSON object of them all, and the
 card's name and power limit last. Needs ``nvcc`` and a CUDA device.
