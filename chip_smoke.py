@@ -162,6 +162,26 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    family and policy and per churn rate, detection latency, time to
    recover and the largest handling of scale-in and link events (asserted
    under 20 ms), all in the simulator's virtual seconds.
+8. sharding, meshes and the dry run (``sharding_phase``): the port's
+   specs of every config on the four plans of ``launch/mesh.py`` held to
+   the pinned ``SHARDING_DIGEST`` (the JAX package's, from
+   ``tests/test_torch_sharding.py``); TinyLlama's full train state on the
+   card cut into every device's block (views) under the debug plans' tp
+   specs and the trainer's tp 2 and tp 4 layouts over 4 logical devices,
+   each layout's blocks reassembled ``torch.equal`` to the state, the
+   debug plans' per-device param bytes equal to ``shard_report``'s and a
+   model row's blocks to its replication blowup × total; a one-rank
+   ``DeviceMesh`` over NCCL (a ``HashStore``): every TinyLlama leaf
+   through ``distribute_tensor`` bit for bit, ``constrain`` on a
+   ``DTensor`` activation leaving its values; the dry run
+   (``launch/dryrun.run_cell``, traced on the meta device) of every
+   ``ASSIGNED`` arch at ``decode_32k`` on both production meshes and of
+   TinyLlama at every shape, timed; TinyLlama's one-device cell at the
+   main path's batch and sequence, whose argument bytes must equal the
+   bytes its state and batch take on the card, its traced peak logged
+   beside ``torch.cuda.max_memory_allocated`` of one real step; and
+   ``python -m repro_torch.launch.train --lower-only`` as a subprocess
+   (exit 0). It launches its own steps after the paths' counts are read.
 
     python3 chip_smoke.py --baseline DIR
 
@@ -2881,6 +2901,8 @@ def time_codec(codec, state):
 
 
 def time_attention(fa, MaskSpec, gen):
+    from repro_torch.kernels import cost
+
     B, S, H, hd = PER_DEVICE_BATCH * 2, SEQ, 12, 64
     q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
@@ -2892,8 +2914,7 @@ def time_attention(fa, MaskSpec, gen):
     l_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, scale=scale), 20)
     pairs = S * (S + 1) // 2  # causal (q, k) pairs this run computes
-    flops = 4 * B * H * hd * pairs
-    nbytes = 4 * B * S * H * hd * 2  # q, k, v read, o written, bf16
+    flops, nbytes = cost.attention(B, S, S, H, H, hd, pairs)
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
@@ -2910,6 +2931,7 @@ def time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv=None, Sq=None,
     the same mask as an explicit boolean mask (checked against the plain
     version at ``_tol``). The bound counts the (q, k) pairs the mask
     admits."""
+    from repro_torch.kernels import cost
     from repro_torch.models.layers import _mask_block
 
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -2944,8 +2966,7 @@ def time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv=None, Sq=None,
     torch.testing.assert_close(library().float(), want, **tol(bf16))
     del want
     pairs = int(mask.sum())
-    flops = 4 * B * H * hd * pairs
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * Skv * K * hd)  # q, o; k, v
+    flops, nbytes = cost.attention(B, S, Skv, H, K, hd, pairs)
     return dict(model=name, shape=[B, S, Skv, H, K, hd], mask=kind, prefix=pre,
                 admitted_pairs_per_head=pairs, ms=cuda_ms(kernel, 20),
                 plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 20),
@@ -2955,16 +2976,15 @@ def time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv=None, Sq=None,
 def time_wkv6(W, gen, shape):
     """At the RWKV-6 path's shape (global batch 8) and dtypes (fp32 r/k/v
     and decays)."""
+    from repro_torch.kernels import cost
+
     args = wkv6_inputs(gen, *shape, torch.float32)
     k_ms = cuda_ms(lambda: W.wkv6_kernel(*args), 20)
     p_ms = cuda_ms(lambda: W.wkv6_plain(*args, chunk=64), 3, 1)
-    B, S, H, hd = shape
-    n = B * S * H * hd
     # r, k, v, lw read, out written (fp32); u read; the final state written.
-    nbytes = 5 * 4 * n + 4 * H * hd + 4 * B * H * hd * hd
     # Per (b, t, h) and state element: S = e*S + k*v (mul + FMA), o += r*S
     # (FMA): 5 fp32 operations.
-    flops = 5 * n * hd
+    flops, nbytes = cost.wkv6(*shape)
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
                 bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
 
@@ -2972,23 +2992,18 @@ def time_wkv6(W, gen, shape):
 def time_ssd(SD, gen, shape):
     """At the Zamba2 path's shape (global batch 8) and dtypes (bf16 x/B/C,
     fp32 dt)."""
+    from repro_torch.kernels import cost
+
     args = ssd_inputs(gen, *shape, torch.bfloat16)
     k_ms = cuda_ms(lambda: SD.ssd_kernel(*args), 20)
     p_ms = cuda_ms(lambda: SD.ssd_plain(*args, chunk=64), 3, 1)
-    B, S, H, P, N = shape
     # x read (bf16), y written (fp32); dt, A_log read (fp32), B and C read
-    # (bf16); the final state written.
-    nbytes = (2 * B * S * H * P + 4 * B * S * H * P + 4 * B * S * H + 4 * H
-              + 2 * 2 * B * S * N + 4 * B * H * P * N)
-    # The chunked form's products per (b, h) and chunk of L = 64, at the bf16
-    # tensor-core peak (2 flops a multiply-add): C·Bᵀ (L·L·N), M·X (L·L·P),
-    # C·hᵀ (L·N·P) and the state update (L·P·N). (Counted as the
-    # recurrence's 5·P·N fp32 operations per step at 67 TFLOP/s they gave
-    # 0.160 ms, which is not the work the bf16 kernel does.) The bytes bound
-    # it either way.
-    L = 64
-    chunks = B * H * -(-S // L)
-    flops = 2 * chunks * (L * L * N + L * L * P + 2 * L * N * P)
+    # (bf16); the final state written. The chunked form's products, at the
+    # bf16 tensor-core peak (``cost.ssd``). (Counted as the recurrence's
+    # 5·P·N fp32 operations per step at 67 TFLOP/s they gave 0.160 ms,
+    # which is not the work the bf16 kernel does.) The bytes bound it
+    # either way.
+    flops, nbytes = cost.ssd(*shape)
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
@@ -3043,6 +3058,7 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
     mask (checked against the plain version at ``_tol``), which has no
     softcap (None for a config with one). The bound counts the cache rows
     the mask admits."""
+    from repro_torch.kernels import cost
     from repro_torch.models import zamba2
 
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -3091,8 +3107,7 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
                                    **tol(bf16))
         library_ms, library_window = _per_launch(library, sets)
     n_kv = int(admitted.sum())
-    nbytes = 2 * (B * H * hd + 2 * B * n_kv * K * hd + B * H * hd)
-    flops = 4 * B * H * hd * n_kv
+    flops, nbytes = cost.attention(B, 1, cache_len, H, K, hd, n_kv, kv_rows=n_kv)
     del sets
     return dict(model=name, shape=[B, 1, cache_len, H, K, hd], mask=kind,
                 q_offset=q_offset, window=window, softcap=softcap, scale=scale, admitted_rows=n_kv,
@@ -3107,6 +3122,7 @@ def time_decode_wkv6(W, gen):
     fp32 r/k/v as the run gives them, on one state per layer; beside it the
     plain version. No library call computes the recurrence."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import cost
 
     cfg = get_config("rwkv6-1.6b")
     B, H, hd = SERVE_BATCH, cfg.n_heads, cfg.head_dim
@@ -3115,10 +3131,8 @@ def time_decode_wkv6(W, gen):
     ms, window = _per_launch(W.wkv6_kernel, sets)
     plain_ms, plain_window = _per_launch(lambda *a: W.wkv6_plain(*a, chunk=64),
                                          sets, reps=1)
-    n = B * H * hd
     # r, k, v, lw read, out written; u read; the state read and written.
-    nbytes = 5 * 4 * n + 4 * H * hd + 2 * 4 * B * H * hd * hd
-    flops = 5 * n * hd
+    flops, nbytes = cost.wkv6(B, 1, H, hd, state_in=True)
     return dict(shape=[B, 1, H, hd], ms=ms, window_ms=window,
                 plain_ms=plain_ms, plain_window_ms=plain_window, library_ms=None,
                 bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
@@ -3130,6 +3144,7 @@ def time_decode_ssd(SD, gen):
     plain version (at the chunk ``ops.ssd`` gives it). No library call
     computes the scan. The bound counts the recurrence's fp32 work."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import cost
     from repro_torch.models import mamba2
 
     cfg = get_config("zamba2-1.2b")
@@ -3141,11 +3156,9 @@ def time_decode_ssd(SD, gen):
     plain_ms, plain_window = _per_launch(lambda *a: SD.ssd_plain(*a, chunk=64),
                                          sets, reps=1)
     # x, B, C read (bf16), dt and A_log read, y written (fp32); the state
-    # read and written (fp32).
-    nbytes = (2 * B * H * P + 2 * 2 * B * N + 4 * B * H + 4 * H + 4 * B * H * P
-              + 2 * 4 * B * H * P * N)
-    # Per state element: h = a*h + (dt*x)*B (mul, FMA), y += C*h (FMA).
-    flops = 5 * B * H * P * N
+    # read and written (fp32). Per state element: h = a*h + (dt*x)*B (mul,
+    # FMA), y += C*h (FMA).
+    flops, nbytes = cost.ssd(B, 1, H, P, N, state_in=True)
     return dict(shape=[B, 1, H, P, N], ms=ms, window_ms=window,
                 plain_ms=plain_ms, plain_window_ms=plain_window, library_ms=None,
                 bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
@@ -3863,6 +3876,273 @@ def churn_phase(ops):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: sharding, meshes, the trainer's layouts and the dry run.
+# ---------------------------------------------------------------------------
+
+#: The configs whose specs phase 8 holds to the digest: GPT-2 and ASSIGNED.
+SHARDING_ARCHS = ("gpt2", "paligemma-3b", "whisper-small", "gemma2-27b",
+                  "tinyllama-1.1b", "granite-34b", "llama3-405b", "kimi-k2-1t-a32b",
+                  "arctic-480b", "rwkv6-1.6b", "zamba2-1.2b")
+#: sha256 of ``sharding_records`` over every config and the four plans, equal
+#: to the JAX package's specs (``tests/test_torch_sharding.py`` computes it
+#: from both packages; change the records and that test prints the new one).
+SHARDING_DIGEST = "e84ef029704ddf647117b85b347b4710f473f12aca0f74728eecff62338271bb"
+
+
+def spec_entry(spec):
+    """A spec as JSON: a list with tuples of axes as lists."""
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def spec_tree_entries(paths_specs):
+    """``{"a/b": spec entry}`` of ``(path, spec)`` pairs, ``path`` a
+    sequence of keys."""
+    return {"/".join(str(k) for k in path): spec_entry(spec)
+            for path, spec in paths_specs}
+
+
+def sharding_records(archs=SHARDING_ARCHS):
+    """For each config and each of the four plans of ``launch/mesh.py``: the
+    train state's specs (tp), the train cell's batch specs, the decode
+    cell's (its cache included), the logits spec at the decode batch and
+    ``shard_report`` of the params, as JSON-ready records."""
+    from repro_torch import tree as T
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import build_model
+    from repro_torch.models import sharding as SH
+
+    plans = (M.PRODUCTION_PLAN, M.PRODUCTION_MULTI_POD_PLAN, M.DEBUG_PLAN,
+             M.DEBUG_MULTI_POD_PLAN)
+    train, decode = SHAPES["train_4k"], SHAPES["decode_32k"]
+    records = []
+    for arch in archs:
+        cfg = get_config(arch)
+        model = build_model(cfg, device="meta")
+        state = model.train_state_specs()
+        batches = {"train": model.input_specs(train), "decode": model.input_specs(decode)}
+        for plan in plans:
+            mesh = M.mesh_from_plan(plan)
+            key = [arch, list(plan.shape)]
+            records.append(key + ["state", spec_tree_entries(T.flatten_with_paths(
+                SH.state_specs_tree(state, cfg, mesh)))])
+            for name, cell in (("train", train), ("decode", decode)):
+                records.append(key + [f"batch/{name}", spec_tree_entries(
+                    T.flatten_with_paths(SH.batch_spec_tree(
+                        batches[name], cfg, mesh, cell=cell)))])
+            records.append(key + ["logits", spec_entry(
+                SH.logits_spec(cfg, mesh, decode.global_batch))])
+            records.append(key + ["shard_report",
+                                  SH.shard_report(mesh, state["params"], cfg)])
+    return records
+
+
+def records_digest(records):
+    return hashlib.sha256(json.dumps(records, sort_keys=True).encode()).hexdigest()
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def device_blocks(state, shardings, positions):
+    """Each mesh position's blocks of every leaf of ``state`` under the
+    sharding tree ``shardings`` (views, no copies): ``{position: [block,
+    ...]}`` in leaf order."""
+    from repro_torch import tree as T
+
+    pairs = list(zip(T.leaves(state), T.leaves(shardings)))
+    return {pos: [leaf[sh.indices(leaf.shape, pos)] for leaf, sh in pairs]
+            for pos in positions}
+
+
+def reassembles(state, shardings, blocks):
+    """Whether writing every position's blocks back into fresh tensors gives
+    every leaf of ``state`` bit for bit (one leaf at a time)."""
+    from repro_torch import tree as T
+
+    for i, (leaf, sh) in enumerate(zip(T.leaves(state), T.leaves(shardings))):
+        out = torch.empty_like(leaf)
+        for pos, bl in blocks.items():
+            out[sh.indices(leaf.shape, pos)] = bl[i]
+        if not torch.equal(out, leaf):
+            return False
+    return True
+
+
+def sharding_phase(ops):
+    """Phase 8 (the module docstring). Returns its record."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ASSIGNED, SHAPES, ShapeCell, get_config
+    from repro_torch.core.plans import ParallelismPlan
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import build_model
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.shardctx import activation_sharding, constrain
+
+    t_phase = time.perf_counter()
+    rec = {}
+    t0 = time.perf_counter()
+    digest = records_digest(sharding_records())
+    if digest != SHARDING_DIGEST:
+        raise AssertionError(f"sharding specs digest {digest}, pinned {SHARDING_DIGEST}")
+    rec["specs_s"] = time.perf_counter() - t0
+
+    # The full-width state, cut into every device's block under four layouts.
+    t0 = time.perf_counter()
+    name = "tinyllama-1.1b"
+    cfg = get_config(name)
+    model = build_model(cfg)
+    state = model.init_train_state(torch.Generator(device="cuda").manual_seed(0))
+    state_bytes = sum(_nbytes(leaf) for leaf in T.leaves(state))
+    layouts = []
+    for plan in (M.DEBUG_PLAN, M.DEBUG_MULTI_POD_PLAN):
+        mesh = M.mesh_from_plan(plan)
+        shardings = SH.named(mesh, SH.state_specs_tree(state, cfg, mesh, tp=True))
+        positions = list(np.ndindex(*plan.shape))
+        blocks = device_blocks(state, shardings, positions)
+        report = SH.shard_report(mesh, state["params"], cfg)
+        per_dev = {pos: sum(_nbytes(b) for b in bl) for pos, bl in device_blocks(
+            state["params"], shardings["params"], positions).items()}
+        if set(per_dev.values()) != {report["per_device_bytes"]}:
+            raise AssertionError(f"{plan.shape}: param bytes per device {per_dev}, "
+                                 f"shard_report {report['per_device_bytes']}")
+        model_row = sum(v for pos, v in per_dev.items() if all(i == 0 for i in pos[:-1]))
+        want = report["replication_blowup"] * report["total_bytes"]
+        if abs(model_row - want) > 1e-6 * report["total_bytes"]:
+            raise AssertionError(f"{plan.shape}: a model row holds {model_row} param "
+                                 f"bytes, blowup x total {want}")
+        layouts.append((f"plan {list(plan.shape)}", state, shardings, blocks))
+        rec[f"plan {list(plan.shape)}"] = dict(
+            param_bytes_per_device=report["per_device_bytes"],
+            replication_blowup=report["replication_blowup"],
+            state_bytes_per_device=sum(_nbytes(b) for b in blocks[positions[0]]))
+    trainer = ElasticTrainer(model, initial=4)
+    trainer.init(state=state)
+    for tp in (2, 4):
+        trainer.apply_reshard(tp)
+        positions = list(np.ndindex(*trainer.mesh().devices.shape))
+        blocks = {pos: T.leaves(trainer.local_state(trainer.mesh().devices[pos]))
+                  for pos in positions}
+        layouts.append((f"trainer tp {tp}", trainer.state, trainer.layout, blocks))
+        rec[f"trainer tp {tp}"] = dict(
+            state_bytes_per_device=sum(_nbytes(b) for b in blocks[positions[0]]))
+    for label, st, shardings, blocks in layouts:
+        ptrs = {leaf.untyped_storage().data_ptr() for leaf in T.leaves(st)}
+        if not all(b.untyped_storage().data_ptr() in ptrs for bl in blocks.values()
+                   for b in bl):
+            raise AssertionError(f"{label}: a block is not a view of the state")
+        if not reassembles(st, shardings, blocks):
+            raise AssertionError(f"{label}: the blocks do not reassemble the state")
+    del layouts, blocks, trainer
+    rec["state_bytes"] = state_bytes
+    rec["blocks_s"] = time.perf_counter() - t0
+    log(f"sharding: TinyLlama's state ({state_bytes} bytes) cut and reassembled "
+        f"bit for bit under the debug plans and the trainer's tp 2 and 4: "
+        f"{json.dumps(rec)}")
+
+    # A one-rank DeviceMesh over NCCL.
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = M.mesh_from_plan(ParallelismPlan((1, 1), ("data", "model")))
+        dm = mesh.device_mesh()
+        if dm.device_type != "cuda" or dm.mesh_dim_names != ("data", "model"):
+            raise AssertionError(f"one-rank mesh {dm}")
+        specs = SH.state_specs_tree(state, cfg, mesh)
+        for leaf, spec in zip(T.leaves(state), T.leaves(specs)):
+            dt = distribute_tensor(leaf, dm, SH.placements(spec, dm.mesh_dim_names))
+            local = dt.to_local()
+            if _nbytes(local) != _nbytes(leaf) or not torch.equal(local, leaf):
+                raise AssertionError("distribute_tensor on one rank changed a leaf")
+            del dt, local
+        x = torch.randn((8, 64, cfg.d_model), device="cuda").to(torch.bfloat16)
+        xd = distribute_tensor(x, dm, SH.placements(SH.P(), dm.mesh_dim_names))
+        with activation_sharding(mesh):
+            y = constrain(xd, "batch", None, None)
+        if not isinstance(y, DTensor) or not torch.equal(y.to_local(), x):
+            raise AssertionError("constrain changed a DTensor on one rank")
+    finally:
+        dist.destroy_process_group()
+    rec["device_mesh_s"] = time.perf_counter() - t0
+
+    # The dry run: the launcher's --lower-only in a subprocess beside the
+    # cells traced here.
+    code = ("import runpy, sys; sys.modules.update(jax=None, repro=None, networkx=None); "
+            f"sys.argv = ['train', '--arch', '{name}', '--lower-only']; "
+            "runpy.run_module('repro_torch.launch.train', run_name='__main__')")
+    t_lower = time.perf_counter()
+    lower = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    t0 = time.perf_counter()
+    cells = [(arch, "decode_32k", kind) for arch in ASSIGNED for kind in ("single", "multi")]
+    cells += [(name, shape, kind) for shape in SHAPES for kind in ("single", "multi")
+              if (name, shape, kind) not in cells]
+    dry = []
+    for arch, shape, kind in cells:
+        t1 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, kind)
+        if r.get("skipped"):
+            dry.append({"cell": f"{arch}|{shape}|{kind}", "skipped": r["reason"]})
+            continue
+        dry.append({"cell": f"{arch}|{shape}|{kind}", "s": time.perf_counter() - t1,
+                    "trace_s": r["trace_s"],
+                    "argument_bytes": r["memory_analysis"]["argument_bytes"],
+                    "dominant": r["roofline"]["dominant"],
+                    "step_time_lower_bound_s": r["roofline"]["step_time_lower_bound_s"]})
+    rec["dryrun_cells_s"] = time.perf_counter() - t0
+    log(json.dumps({"dryrun_cells": dry}))
+
+    # TinyLlama's one-device cell against the card.
+    B, S = path_batches(name)[0], path_seq(name)
+    cell = ShapeCell("path", S, B, "train")
+    r = dryrun.run_cell(name, cell, ParallelismPlan((1, 1), ("data", "model")))
+    batch = model.make_batch(cell)
+    real = state_bytes + sum(_nbytes(t) for t in T.leaves(batch))
+    mem = r["memory_analysis"]
+    if mem["argument_bytes"] != real:
+        raise AssertionError(f"dry run argument bytes {mem['argument_bytes']}, "
+                             f"the card's state and batch {real}")
+    step = model.make_train_step()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError("the one-device step's loss is not finite")
+    rec["one_device"] = dict(
+        batch=B, seq=S, argument_bytes=mem["argument_bytes"], card_argument_bytes=real,
+        predicted_peak_bytes=mem["peak_bytes"], predicted_temp_bytes=mem["temp_bytes"],
+        card_peak_bytes=peak, card_allocated_before_step=base,
+        peak_ratio=mem["peak_bytes"] / peak, trace_s=r["trace_s"])
+    del state, batch, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    try:
+        out, err = lower.communicate(timeout=300)
+    finally:
+        lower.kill()
+    if lower.returncode != 0:
+        raise AssertionError(f"--lower-only exited {lower.returncode}: {err[-2000:]}")
+    rec["lower_only_s"] = time.perf_counter() - t_lower
+    rec["lower_only_record"] = out.strip().splitlines()[-1][:200]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"sharding_phase": rec}))
+    return rec
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -4048,6 +4328,8 @@ def main():
                                 (times["shard_encode"], times["shard_decode"]))
     # Phase 7: the churn backend replays traces on the simulator.
     churn = churn_phase(ops)
+    # Phase 8: sharding, meshes, the trainer's layouts and the dry run.
+    sharding_phase(ops)
     rows = [
         ("shard_encode", "src/repro_torch/csrc/shard_codec.cu",
          "src/repro/kernels/shard_codec.py:46"),

@@ -276,3 +276,15 @@ def execute_replication(tree, plan: ReplicationExecution):
         merged.update(shards)
     out = assemble_shards(merged, plan.ranges, manifest.total_bytes)
     return unflatten_state(out, manifest), by_source
+
+
+def plan_for_sharded_state(
+    rank_of_neighbor: Dict[int, int],
+    my_rank_sources: Dict[int, NeighborLink],
+    tree,
+) -> ReplicationExecution:
+    """TP/EP-sharded training state: only neighbors holding the same shard
+    rank are valid sources. Callers pass the same-rank neighbor subset; this
+    is a thin wrapper documenting the grouping contract."""
+    assert my_rank_sources, "no same-rank neighbors — fall back to checkpoint tier"
+    return plan_replication(tree, my_rank_sources)

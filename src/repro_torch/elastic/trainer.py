@@ -17,7 +17,14 @@ whose membership grows and shrinks without restarts.
     DP ⇒ identical replicas).
   * link events (degrade / sever / restore / loss) land on a per-device
     link-override table over ``link_model`` and reshape later plans.
-  * reshard: ``apply_reshard`` records the (dp, tp) layout and the
+  * layout: ``mesh()`` is the JAX trainer's — (n // tp, tp) over ("data",
+    "model"), or (n,) over ("data",) — and ``_state_shardings()`` lays the
+    state out as there: replicated at tp 1; at tp > 1 each leaf's last dim
+    over ``model`` where tp divides it, else replicated. ``layout`` holds
+    the state's shardings, set by ``init``, every membership change,
+    ``apply_reshard`` and ``restore_from``; ``local_state(device)`` gives
+    the block of each leaf that device holds under it, as views.
+  * reshard: ``apply_reshard`` sets the (dp, tp) layout and the
     micro-batch split a reshard policy chose; a membership change resets
     them to tp 1, micro-batch 1.
   * recovery tiers (``attach_recovery``): ``checkpoint`` pushes the live
@@ -28,11 +35,15 @@ whose membership grows and shrinks without restarts.
     ``ChurnEngine`` with :class:`TrainerBackend`, the same pipeline and
     ledger as the JAX package's trainer and simulator.
 
-On one card there is nothing to move and nothing to recompile: the JAX
-trainer's per-mesh compile cache and its ``device_put`` onto the enlarged
-or resharded mesh have no counterpart, and the state tensors stay where
-they are. ``apply_reshard`` therefore moves nothing; the JAX step does not
-read the micro-batch split either.
+Logical devices share one card, so the state stays one set of tensors:
+each device's block under the layout is a view of it (``local_state``, the
+counterpart of the JAX trainer's ``addressable_shards`` after its
+``device_put``), and nothing moves when the layout changes. The JAX
+trainer's per-mesh compile cache has no counterpart, and the step runs
+the global batch on the whole state whatever the layout; the JAX step
+does not read the micro-batch split either. Moving blocks between cards
+needs a process per card (``Mesh.device_mesh``), which one card cannot
+host.
 """
 from __future__ import annotations
 
@@ -56,6 +67,7 @@ from repro_torch.core.replication import (
     roundtrip_max_error_ok,
 )
 from repro_torch.core.sharding_alg import NeighborLink
+from repro_torch.models.sharding import Mesh, NamedSharding, P
 
 #: per-byte transmission delay standing in for a severed link: the Alg-1/2
 #: planner derates such a neighbor to (near) zero shards.
@@ -114,6 +126,7 @@ class ElasticTrainer:
         self.events: List[ScaleEvent] = []
         self._step_times: Dict[int, list] = {}
         self.state = None
+        self.layout = None
         self._seed = seed
         # Recovery tiers (attach_recovery): the in-memory neighbor-replica
         # store (fast tier) and the async disk checkpointer (cold tier).
@@ -132,6 +145,46 @@ class ElasticTrainer:
         return ParallelismPlan((n // self._tp, self._tp),
                                devices=tuple(self.device_ids()),
                                microbatch=self._microbatch)
+
+    def mesh(self) -> Mesh:
+        """The active devices as the JAX trainer's mesh: (n // tp, tp) over
+        ("data", "model") at tp > 1, (n,) over ("data",) at tp 1."""
+        n = len(self.active)
+        if self._tp > 1:
+            return Mesh((n // self._tp, self._tp), ("data", "model"), self.active)
+        return Mesh((n,), ("data",), self.active)
+
+    def _state_shardings(self, state=None):
+        """Sharding tree for the training state under the current layout:
+        tp == 1 replicates every leaf; tp > 1 shards each leaf's last dim
+        over ``model`` when tp divides it, else replicates it (as
+        ``models.sharding._div`` degrades)."""
+        mesh = self.mesh()
+        state = self.state if state is None else state
+
+        def one(leaf):
+            shape = tuple(leaf.shape)
+            if self._tp > 1 and len(shape) and shape[-1] % self._tp == 0:
+                return NamedSharding(mesh, P(*([None] * (len(shape) - 1)), "model"))
+            return NamedSharding(mesh, P())
+
+        return T.tree_map(one, state)
+
+    def _batch_sharding(self) -> NamedSharding:
+        return NamedSharding(self.mesh(), P("data"))
+
+    def _set_layout(self) -> None:
+        self.layout = self._state_shardings() if self.state is not None else None
+
+    def local_state(self, device):
+        """The block of each state leaf that ``device`` (an active device)
+        holds under ``layout``: views of the state, no copies."""
+        grid = T.leaves(self.layout)[0].mesh.devices
+        pos = next((p for p in np.ndindex(*grid.shape) if grid[p] == device), None)
+        if pos is None:
+            raise ValueError(f"{device} is not an active device")
+        return T.tree_map(lambda leaf, sh: leaf[sh.indices(leaf.shape, pos)],
+                          self.state, self.layout)
 
     @property
     def global_batch(self) -> int:
@@ -221,6 +274,7 @@ class ElasticTrainer:
                 generator.manual_seed(self._seed)
             state = self.model.init_train_state(generator)
         self.state = state
+        self._set_layout()
         if self.on_reshard:
             self.on_reshard(self.device_ids())
         return self.state
@@ -288,6 +342,7 @@ class ElasticTrainer:
         self._tp = 1
         self._microbatch = 1
         self.active = self.active + [device]
+        self._set_layout()
         self._sync()
         wall = time.perf_counter() - t0
         if self.on_reshard:
@@ -315,6 +370,7 @@ class ElasticTrainer:
         self._tp = 1
         self._microbatch = 1
         self.active = [d for d in self.active if d != device]
+        self._set_layout()
         self._sync()
         wall = time.perf_counter() - t0
         if self.on_reshard:
@@ -326,8 +382,8 @@ class ElasticTrainer:
 
     def apply_reshard(self, tp: int, microbatch: int = 1) -> ScaleEvent:
         """Apply a parallelism-plan change: validate ``tp`` against the
-        active devices and record the (dp, tp) layout and micro-batch
-        split. Logical devices of one card hold the whole state, so nothing
+        active devices and set the (dp, tp) layout and micro-batch split.
+        The blocks of the new layout are views of the one state, so nothing
         moves (the JAX trainer's ``device_put`` to the new shardings)."""
         tp = int(tp)
         n = len(self.active)
@@ -336,6 +392,7 @@ class ElasticTrainer:
         t0 = time.perf_counter()
         self._tp = tp
         self._microbatch = max(1, int(microbatch))
+        self._set_layout()
         wall = time.perf_counter() - t0
         ev = ScaleEvent("reshard", str(self.active[0]), self.step_count,
                         wall, {"shape": [n // tp, tp],
@@ -400,6 +457,7 @@ class ElasticTrainer:
             raise ValueError(f"unknown recovery tier {tier!r}")
         device = self.model.device
         self.state = T.tree_map(lambda t: t.to(device), tree)
+        self._set_layout()
         self._sync()
         return step
 

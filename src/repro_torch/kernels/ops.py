@@ -16,6 +16,12 @@ differentiates the plain version, as the JAX package's ``_fa_bwd``,
 ``chunk=min(chunk, 32)``). The JAX package has no backward kernel, so the
 port has none either. Each backward runs inside a ``record_function`` range
 (``<name>_plain_backward``) so that a profile can attribute its device time.
+
+On the meta device (the dry run's trace) ``flash_attention``, ``wkv6`` and
+``ssd`` return empty outputs of the kernel's shapes and report the
+kernel's analytic operations and bytes (``kernels.cost``) to ``trace_sink``
+when one is set; nothing launches and nothing is counted in ``launches``.
+Their backwards trace the plain versions, as they run them.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import shard_codec as _codec
 from repro_torch.kernels import ssd as _ssd
@@ -34,6 +41,18 @@ launches = {"shard_encode": 0, "shard_decode": 0, "flash_attention": 0,
 #: names of the profiler ranges around the plain backwards.
 BACKWARD_RANGES = ("flash_attention_plain_backward", "wkv6_plain_backward",
                    "ssd_plain_backward")
+
+
+#: Set by ``launch/trace_analysis.py`` while it traces: its ``kernel(name,
+#: flops, nbytes)`` is called for each kernel entry met on the meta device,
+#: and its ``vjp(key, run)`` runs or replays a plain backward.
+trace_sink = None
+
+
+def _traced(name, flops_bytes, *outs):
+    if trace_sink is not None:
+        trace_sink.kernel(name, *flops_bytes)
+    return outs[0] if len(outs) == 1 else outs
 
 
 def reset_launches() -> None:
@@ -49,11 +68,21 @@ def _on_card(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel or plain version for {t.device}")
 
 
-def _plain_vjp(fn, args, n_diff, grads, name):
+def _plain_vjp(fn, args, n_diff, grads, name, static=()):
     """Gradients of the plain version ``fn(*args)`` (a tuple of outputs)
     with respect to its first ``n_diff`` args, against the output grads
     ``grads`` (None where an output was unused), inside the profiler range
-    ``name``. Args past ``n_diff`` are passed as they are."""
+    ``name``. Args past ``n_diff`` are passed as they are. On the meta
+    device under a trace, the trace may stand in its record of an earlier
+    call with the same shapes and ``static`` arguments (``trace_sink.vjp``)."""
+    if trace_sink is not None and args[0].is_meta:
+        key = (name, static, n_diff, tuple(g is not None for g in grads),
+               tuple(None if a is None else (tuple(a.shape), a.dtype) for a in args))
+        return trace_sink.vjp(key, lambda: _run_vjp(fn, args, n_diff, grads, name))
+    return _run_vjp(fn, args, n_diff, grads, name)
+
+
+def _run_vjp(fn, args, n_diff, grads, name):
     live = [a.detach().requires_grad_(True) for a in args[:n_diff]]
     with torch.enable_grad(), record_function(name):
         outs = fn(*live, *args[n_diff:])
@@ -74,6 +103,14 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, spec, scale, softcap, q_offset):
         ctx.save_for_backward(q, k, v)
         ctx.static = (spec, scale, softcap, q_offset)
+        if q.is_meta:
+            B, Sq, H, hd = q.shape
+            Skv, K = k.shape[1], k.shape[2]
+            pairs = _cost.admitted_pairs(spec.kind, spec.window, spec.prefix_len,
+                                         Sq, Skv, q_offset)
+            return _traced("flash_attention", _cost.attention(
+                B, Sq, Skv, H, K, hd, pairs, itemsize=q.element_size()),
+                torch.empty_like(q))
         if _on_card(q, "flash_attention"):
             launches["flash_attention"] += 1
             return _fa.flash_attention_kernel(
@@ -92,7 +129,7 @@ class _FlashAttention(torch.autograd.Function):
                                         softcap=softcap, q_offset=q_offset),)
 
         dq, dk, dv = _plain_vjp(plain, ctx.saved_tensors, 3, (g,),
-                                BACKWARD_RANGES[0])
+                                BACKWARD_RANGES[0], ctx.static)
         return dq, dk, dv, None, None, None, None
 
 
@@ -121,6 +158,12 @@ class _WKV6(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, lw, u, state)
         ctx.chunk = chunk
+        if r.is_meta:
+            B, S, H, hd = r.shape
+            return _traced("wkv6", _cost.wkv6(B, S, H, hd, state_in=state is not None,
+                                              itemsize=r.element_size()),
+                           r.new_empty((B, S, H, hd), dtype=torch.float32),
+                           r.new_empty((B, H, hd, hd), dtype=torch.float32))
         if _on_card(r, "wkv6"):
             launches["wkv6"] += 1
             return _wkv6.wkv6_kernel(r, k, v, lw, u, state, chunk=chunk)
@@ -136,7 +179,7 @@ class _WKV6(torch.autograd.Function):
 
         n_diff = 5 if state is None else 6  # no initial state, no gradient
         grads = _plain_vjp(plain, (r, k, v, lw, u, state), n_diff,
-                           (g_out, g_state), BACKWARD_RANGES[1])
+                           (g_out, g_state), BACKWARD_RANGES[1], (chunk,))
         return (*grads, *[None] * (7 - n_diff))
 
 
@@ -153,6 +196,13 @@ class _SSD(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A_log, Bm, Cm, state)
         ctx.chunk = chunk
+        if x.is_meta:
+            B, S, H, P = x.shape
+            N = Bm.shape[-1]
+            return _traced("ssd", _cost.ssd(B, S, H, P, N, state_in=state is not None,
+                                            itemsize=x.element_size()),
+                           x.new_empty((B, S, H, P), dtype=torch.float32),
+                           x.new_empty((B, H, P, N), dtype=torch.float32))
         if _on_card(x, "ssd"):
             launches["ssd"] += 1
             return _ssd.ssd_kernel(x, dt, A_log, Bm, Cm, state, chunk=chunk)
@@ -168,7 +218,7 @@ class _SSD(torch.autograd.Function):
 
         n_diff = 5 if state is None else 6  # no initial state, no gradient
         grads = _plain_vjp(plain, (x, dt, A_log, Bm, Cm, state), n_diff,
-                           (g_y, g_state), BACKWARD_RANGES[2])
+                           (g_y, g_state), BACKWARD_RANGES[2], (chunk,))
         return (*grads, *[None] * (7 - n_diff))
 
 

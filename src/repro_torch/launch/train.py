@@ -15,8 +15,11 @@ the port's own: CUDA unless given, and asking for CUDA where there is none
 raises (``repro_torch.device.resolve_device``). The JAX launcher forces 8
 host devices through ``XLA_FLAGS``; here ``ElasticTrainer`` holds a pool of
 8 logical devices on the one device, so the elastic schedule (start on 4,
-per-device batch ``global_batch // 8``) is the same. ``--lower-only``, the
-JAX launcher's dry run, is not ported and exits non-zero.
+per-device batch ``global_batch // 8``) is the same. ``--lower-only`` runs
+the dry run's cell of ``--arch`` at ``--shape`` on the single-pod mesh
+(``launch.dryrun.run_cell``; full config, meta tensors, no device), prints
+the record without its trace analysis and exits 0, as the JAX launcher
+does.
 
 Scale knobs live in the configs (``repro_torch/configs/<arch>.py``); the
 default ``--reduced`` uses the same ``reduced()`` family transform as the
@@ -147,17 +150,18 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--lower-only", action="store_true",
-                    help="not ported: exits non-zero")
+                    help="print the dry run's single-mesh record and exit")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
 
     if args.lower_only:
-        print("--lower-only: the port has no dry run yet; the JAX launcher "
-              "(python -m repro.launch.train --lower-only) has one",
-              file=sys.stderr)
-        return 2
+        from repro_torch.launch import dryrun
+
+        rec = dryrun.run_cell(args.arch, args.shape, "single")
+        print({k: v for k, v in rec.items() if k != "trace_analysis"})
+        return 0
 
     try:
         cfg = get_config(args.arch)

@@ -12,6 +12,10 @@ instead (``repro_torch.convert``).
 ``attention_sublayer`` also runs Whisper's cross-attention: K/V projected
 from ``kv_x`` (no RoPE on either side), or read as they are from a
 precomputed cross cache (``static_kv``).
+
+The activations carry ``shardctx.constrain`` at the JAX module's points (q,
+k, v, the attention output and the sublayer outputs, the MLP hidden, the
+embedded tokens); it returns a plain tensor as it is.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.shardctx import constrain
 
 NEG_INF = -2.0e38
 
@@ -172,7 +178,8 @@ def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
     B, S, _ = x.shape
     dt = x.dtype
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
+    q = constrain((x @ params["wq"].to(dt)).reshape(B, S, H, hd),
+                  "batch", None, "model", None)
     rotate = cfg.positions == "rope" and kv_x is None
     if rotate:
         if positions is None:
@@ -183,10 +190,12 @@ def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
         k, v = (c.to(dt) for c in cache_kv)
         o = blocked_attention(q, k, v, spec, scale=scale, softcap=cfg.attn_softcap,
                               is_local=is_local)
-        return o.reshape(B, S, H * hd) @ params["wo"].to(dt), cache_kv
+        return _attention_out(params, o, B, S, H * hd, dt), cache_kv
     src = x if kv_x is None else kv_x
-    k = (src @ params["wk"].to(dt)).reshape(B, src.shape[1], K, hd)
-    v = (src @ params["wv"].to(dt)).reshape(B, src.shape[1], K, hd)
+    k = constrain((src @ params["wk"].to(dt)).reshape(B, src.shape[1], K, hd),
+                  "batch", None, "model", None)
+    v = constrain((src @ params["wv"].to(dt)).reshape(B, src.shape[1], K, hd),
+                  "batch", None, "model", None)
     if rotate:
         k = rope(k, positions, cfg.rope_theta)
     q_offset = 0
@@ -206,7 +215,12 @@ def attention_sublayer(params, x, cfg, spec: MaskSpec, *, positions=None,
             q_offset = cache_pos
     o = blocked_attention(q, k, v, spec, scale=scale, softcap=cfg.attn_softcap,
                           q_offset=q_offset, is_local=is_local)
-    return o.reshape(B, S, H * hd) @ params["wo"].to(dt), cache_kv
+    return _attention_out(params, o, B, S, H * hd, dt), cache_kv
+
+
+def _attention_out(params, o, B, S, width, dt):
+    o = constrain(o, "batch", None, "model", None)
+    return constrain(o.reshape(B, S, width) @ params["wo"].to(dt), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +249,7 @@ def mlp_sublayer(params, x, kind):
     w2``; geglu: ``(gelu_tanh(x@w1) * (x@w3)) @ w2``; all in the
     activations' dtype."""
     dt = x.dtype
-    h = x @ params["w1"].to(dt)
+    h = constrain(x @ params["w1"].to(dt), "batch", None, "model")
     if kind == "swiglu":
         h = F.silu(h) * (x @ params["w3"].to(dt))
     elif kind == "geglu":
@@ -244,7 +258,7 @@ def mlp_sublayer(params, x, kind):
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"unknown mlp {kind!r}")
-    return h @ params["w2"].to(dt)
+    return constrain(h @ params["w2"].to(dt), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +278,7 @@ def init_embed(gen, cfg, device):
 
 def embed_tokens(params, tokens, cfg, positions=None, dtype=torch.bfloat16):
     # Gather, then cast: the same values as JAX's cast-then-gather.
-    x = F.embedding(tokens, params["tok"]).to(dtype)
+    x = constrain(F.embedding(tokens, params["tok"]).to(dtype), "batch", None, None)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     if cfg.positions == "learned" and positions is not None:

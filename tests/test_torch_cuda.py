@@ -583,3 +583,67 @@ def test_moe_dispatch_indices_on_the_card_equal_the_cpu(gen, case):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
     if case != "random":
         assert int((~got[2]).sum()) == 2 * (T - C)
+
+
+# ---------------------------------------------------------------------------
+# Sharding on the card: a one-rank DeviceMesh and the trainer's layouts.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A one-rank NCCL process group (``HashStore``) and the (1, 1) mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.core.plans import ParallelismPlan
+    from repro_torch.launch.mesh import mesh_from_plan
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield mesh_from_plan(ParallelismPlan((1, 1), ("data", "model")))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_device_mesh_round_trip(one_rank_mesh):
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.shardctx import activation_sharding, constrain
+
+    dm = one_rank_mesh.device_mesh()
+    assert dm.device_type == "cuda" and dm.mesh_dim_names == ("data", "model")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((64, 48), generator=gen, device="cuda")
+    for spec in (SH.P(), SH.P("data", "model"), SH.P(("data", "model"))):
+        dt = distribute_tensor(x, dm, SH.placements(spec, dm.mesh_dim_names))
+        assert torch.equal(dt.to_local(), x) and torch.equal(dt.full_tensor(), x)
+    act = torch.randn((4, 16, 32), generator=gen, device="cuda").to(torch.bfloat16)
+    with activation_sharding(one_rank_mesh):
+        y = constrain(distribute_tensor(act, dm, SH.placements(SH.P(), ("data", "model"))),
+                      "batch", None, "model")
+    assert isinstance(y, DTensor) and torch.equal(y.full_tensor(), act)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_local_state_views_of_full_tinyllama(gen, tp):
+    """TinyLlama's full train state under the trainer's tp layout over 4
+    logical devices: every device's blocks are views of the state, and they
+    reassemble it bit for bit."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.models import build_model
+
+    trainer = ElasticTrainer(build_model(get_config("tinyllama-1.1b")), initial=4)
+    trainer.init(gen)
+    trainer.apply_reshard(tp)
+    grid = trainer.mesh().devices
+    assert grid.shape == (4 // tp, tp)
+    blocks = {pos: T.leaves(trainer.local_state(grid[pos])) for pos in np.ndindex(*grid.shape)}
+    ptrs = {leaf.untyped_storage().data_ptr() for leaf in T.leaves(trainer.state)}
+    assert all(b.untyped_storage().data_ptr() in ptrs for bl in blocks.values() for b in bl)
+    assert chip_smoke.reassembles(trainer.state, trainer.layout, blocks)

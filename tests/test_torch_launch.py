@@ -380,8 +380,13 @@ def test_elastic_cli_runs_as_a_module(jax_init, tmp_path):
 
 
 def test_lower_only_exits_non_zero(capsys):
-    assert launch.main(["--arch", "gpt2", "--lower-only"]) != 0
-    assert "no dry run" in capsys.readouterr().err
+    """``--lower-only`` prints the dry run's single-mesh record of the full
+    config, without its trace analysis, and exits 0."""
+    assert launch.main(["--arch", "gpt2", "--lower-only", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.rstrip().splitlines()[-1]
+    assert out.startswith("{'arch': 'gpt2', 'shape': 'train_4k', 'mesh': 'single'")
+    assert "'roofline'" in out and "'memory_analysis'" in out
+    assert "trace_analysis" not in out
 
 
 def test_launcher_without_cuda_raises():
