@@ -125,8 +125,9 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    leaf by leaf; the decode shapes of attention (GPT-2's, Zamba2's,
    TinyLlama's, PaliGemma's and gemma2's local and global layers, beside
    ``scaled_dot_product_attention`` where it computes the same function:
-   it has no softcap), WKV6 and SSD as device time per launch, one input
-   set per layer (per application of Zamba2's shared block); attention
+   it has no softcap; each with the decode regime's split count, CTAs and
+   share of the memory rate), WKV6 and SSD as device time per launch, one
+   input set per layer (per application of Zamba2's shared block); attention
    at PaliGemma's training shape (prefix 256, hd 256), Arctic's (causal,
    GQA 56:8, hd 128) and Kimi's (causal, GQA 64:8, hd 112; both also their
    serving prefill into the cache of 1152) and Whisper's encoder, decoder
@@ -185,10 +186,11 @@ Phases, each of which fails hard (any mismatch exits non-zero):
 
     python3 chip_smoke.py --baseline DIR
 
-adds to phase 5 the times of the attention, SSD and WKV6 kernels and the
-per-leaf encode and decode built from the checkout at DIR (an earlier
-commit, unpacked), on the same inputs, in turns with this checkout's
-(baseline, kernel, kernel, baseline).
+adds to phase 5 the times of the attention (at the training and the
+decode shapes), SSD and WKV6 kernels and the per-leaf encode and decode
+built from the checkout at DIR (an earlier commit, unpacked), on the
+same inputs, in turns with this checkout's (baseline, kernel, kernel,
+baseline).
 
 It prints one JSON line per kernel, per path, for the self-healing phase,
 for the launcher, per serving run and per reduced dense run, the
@@ -201,7 +203,9 @@ no result. The whole run has JAX, the JAX package and networkx set
 unimportable in ``sys.modules``; it logs its seconds before the JSON lines.
 """
 import bisect
+import collections
 import contextlib
+import ctypes
 import gc
 import hashlib
 import json
@@ -927,22 +931,32 @@ def attention_cases():
                for i, c in enumerate(ATTN_BF16_EDGES)])
 
 
-def attention_case(fa, gen, case, theta=0.0, q_offset=0, scale=None):
-    """The kernel against ``attention_plain`` at ``_tol`` on one case; q and
-    k go through RoPE first where ``theta`` is given, as in a RoPE config's
-    attention; the queries sit at ``q_offset`` onwards; ``scale`` None is
-    1/sqrt(hd). Every key row holds data, so the rows the mask removes are
-    random, not zero. Returns max |kernel - plain|."""
-    from repro_torch.models.layers import MaskSpec, rope
+def attention_inputs(gen, case, theta=0.0, q_offset=0):
+    """q, k, v of ``case`` on the card; q and k go through RoPE first where
+    ``theta`` is given, as in a RoPE config's attention, the queries at
+    ``q_offset`` onwards. Every key row holds data, so the rows the mask
+    removes are random, not zero."""
+    from repro_torch.models.layers import rope
 
     B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
-    scale = d ** -0.5 if scale is None else scale
     q = torch.randn((B, Sq, H, d), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, Skv, K, d), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, Skv, K, d), generator=gen, device="cuda").to(dt)
     if theta:
         q = rope(q, q_offset + torch.arange(Sq, device="cuda"), theta)
         k = rope(k, torch.arange(Skv, device="cuda"), theta)
+    return q, k, v
+
+
+def attention_case(fa, gen, case, theta=0.0, q_offset=0, scale=None):
+    """The kernel against ``attention_plain`` at ``_tol`` on one case
+    (``attention_inputs``); ``scale`` None is 1/sqrt(hd). Returns
+    max |kernel - plain|."""
+    from repro_torch.models.layers import MaskSpec
+
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+    scale = d ** -0.5 if scale is None else scale
+    q, k, v = attention_inputs(gen, case, theta, q_offset)
     out = fa.flash_attention_kernel(q, k, v, scale=scale, softcap=softcap,
                                     kind=kind, window=window, prefix_len=prefix,
                                     q_offset=q_offset)
@@ -955,21 +969,32 @@ def attention_case(fa, gen, case, theta=0.0, q_offset=0, scale=None):
 
 def check_attention(fa, gen):
     """Every case of ``attention_cases``; returns the largest error at the
-    main paths' shapes."""
+    main paths' shapes. Each line names the kernel the case took
+    (``fa.regime``: decode, wgmma or fma) and, in the decode regime, its
+    split count."""
     main_err = 0.0
+    regimes = collections.Counter()
     for label, case, theta, q_offset, scale in attention_cases():
         err = attention_case(fa, gen, case, theta, q_offset, scale)
+        B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+        regime = fa.regime(dt, Sq, H, K)
+        regimes[regime] += 1
         if not label.startswith("sweep"):
             main_err = max(main_err, err)
             extras = "".join(f", {name} {value}" for name, value in (
-                ("window", case[7]), ("prefix", case[8]), ("softcap", case[9]),
+                ("window", window), ("prefix", prefix), ("softcap", softcap),
                 ("scale", scale), ("RoPE", theta)) if value)
-            log(f"attention {label} {case[:6]} bf16 {case[6]}{extras}, q_offset "
-                f"{q_offset}: max |kernel - plain| {err:.3e} (rtol/atol 2e-2)")
+            if regime == "decode":
+                plan = fa.decode_split_plan(B, Sq, Skv, K, kind, window, prefix, q_offset)
+                regime += f" n_split {plan.n_split}"
+            log(f"attention {label} {case[:6]} bf16 {kind}{extras}, q_offset "
+                f"{q_offset} [{regime}]: max |kernel - plain| {err:.3e} "
+                f"(rtol/atol 2e-2)")
         torch.cuda.empty_cache()
     log(f"attention: {len(ATTN_SWEEP)} sweep cases, {len(ATTN_HD256) + 1} fp32 "
         f"cases at hd 256, {len(ATTN_HD112) + len(DECODE_Q_OFFSETS)} at hd 112 "
-        f"and {len(ATTN_BF16_EDGES)} bf16 edges within _tol")
+        f"and {len(ATTN_BF16_EDGES)} bf16 edges within _tol; cases by kernel: "
+        f"{dict(sorted(regimes.items()))}")
     return main_err
 
 
@@ -3046,7 +3071,7 @@ def _per_launch(fn, sets, reps=5):
 
 
 def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
-                          window=0, n_sets=None, cross=False):
+                          window=0, n_sets=None, cross=False, old=None):
     """The bf16 kernel at a serving run's decode shape (batch ``B``, a cache
     of ``P + n_tokens``), one query row over the whole cache at the middle
     of the decode's positions, with the config's scale and softcap and the
@@ -3057,7 +3082,11 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
     it the plain version and ``scaled_dot_product_attention`` with the same
     mask (checked against the plain version at ``_tol``), which has no
     softcap (None for a config with one). The bound counts the cache rows
-    the mask admits."""
+    the mask admits. Beside the times: the decode regime's ``n_split``, its
+    CTAs (and the merge's), and the share of the card's memory rate that
+    the bound's bytes reach at the kernel's time; with a baseline library
+    ``old`` (``--baseline``), that checkout's kernel on the same sets, in
+    turns with this one's (baseline, kernel, kernel, baseline)."""
     from repro_torch.kernels import cost
     from repro_torch.models import zamba2
 
@@ -3097,9 +3126,22 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
             attn_mask=mask, scale=scale, **gqa).transpose(1, 2)
 
     q, k, v = sets[0]
-    torch.testing.assert_close(kernel(q, k, v).float(), plain(q, k, v).float(),
-                               **tol(bf16))
+    want = plain(q, k, v).float()
+    torch.testing.assert_close(kernel(q, k, v).float(), want, **tol(bf16))
     ms, window_ms = _per_launch(kernel, sets)
+    baseline = {}
+    if old is not None:
+        out = torch.empty_like(q)
+
+        def base(q, k, v):
+            baseline_attention(old, q, k, v, out, scale, softcap, kind, window, 0,
+                               q_offset)
+
+        base(q, k, v)
+        torch.testing.assert_close(out.float(), want, **tol(bf16))
+        b1, n1, n2, b2 = (_per_launch(fn, sets)[0] for fn in (base, kernel, kernel, base))
+        if None not in (b1, n1, n2, b2):
+            baseline = dict(baseline_ms=(b1 + b2) / 2, turns_ms=(n1 + n2) / 2)
     plain_ms, plain_window = _per_launch(plain, sets, reps=1)
     library_ms = library_window = None
     if not softcap:
@@ -3108,12 +3150,16 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
         library_ms, library_window = _per_launch(library, sets)
     n_kv = int(admitted.sum())
     flops, nbytes = cost.attention(B, 1, cache_len, H, K, hd, n_kv, kv_rows=n_kv)
+    n_split = fa.decode_split_plan(B, 1, cache_len, K, kind, window, 0, q_offset).n_split
     del sets
     return dict(model=name, shape=[B, 1, cache_len, H, K, hd], mask=kind,
                 q_offset=q_offset, window=window, softcap=softcap, scale=scale, admitted_rows=n_kv,
+                regime=fa.regime(bf16, 1, H, K), n_split=n_split, ctas=B * K * n_split,
+                merge_ctas=B * H if n_split > 1 else 0,
+                bytes_rate_share=None if ms is None else nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S,
                 ms=ms, window_ms=window_ms, plain_ms=plain_ms,
                 plain_window_ms=plain_window, library_ms=library_ms,
-                library_window_ms=library_window,
+                library_window_ms=library_window, **baseline,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
@@ -3171,10 +3217,42 @@ def open_baseline(csrc):
 
     t0 = time.perf_counter()
     old = build.open_library(build.build(csrc), names=(
-        "repro_flash_attention_fwd", "repro_ssd_fwd", "repro_wkv6_fwd",
-        "repro_shard_encode", "repro_shard_decode"))
+        "repro_ssd_fwd", "repro_wkv6_fwd", "repro_shard_encode", "repro_shard_decode"))
+    # The attention entry took n_split and a workspace from the decode regime
+    # on; an earlier checkout's takes neither (18 arguments). ``takes_split``
+    # is the one record of which, for ``baseline_attention``.
+    old.takes_split = "int n_split" in (pathlib.Path(csrc) / "flash_attention.cu").read_text()
+    sig = list(build.SIGNATURES["repro_flash_attention_fwd"])
+    old.repro_flash_attention_fwd.argtypes = sig if old.takes_split else sig[:-3] + sig[-1:]
+    old.repro_flash_attention_fwd.restype = ctypes.c_int
     log(f"baseline build from {csrc}: {time.perf_counter() - t0:.1f} s")
     return old
+
+
+def baseline_attention(old, q, k, v, out, scale, softcap=0.0, kind="causal",
+                       window=0, prefix_len=0, q_offset=0):
+    """The baseline checkout's attention into ``out``, through its C entry:
+    without the split arguments where it has none, else with this
+    checkout's ``decode_split_plan`` in the decode regime."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    split, ws = [], None
+    if old.takes_split:
+        n = 1
+        if fa.regime(q.dtype, Sq, H, K) == "decode":
+            n = fa.decode_split_plan(B, Sq, Skv, K, kind, window, prefix_len,
+                                     q_offset).n_split
+            size = fa.decode_workspace_floats(B, Sq, H, K, hd, n)
+            ws = torch.empty(size, dtype=torch.float32, device=q.device) if size else None
+        split = [n, None if ws is None else ws.data_ptr()]
+    build.check(old.repro_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        1 if q.dtype == torch.bfloat16 else 0, B, Sq, Skv, H, K, hd, scale, softcap,
+        {"causal": 0, "full": 1, "prefix": 2}[kind], window, prefix_len, q_offset,
+        *split, torch.cuda.current_stream().cuda_stream), "baseline attention")
 
 
 def _in_turns(name, base_fn, new_fn):
@@ -3255,9 +3333,7 @@ def time_baseline(old, gen, shapes):
     stream = torch.cuda.current_stream().cuda_stream
 
     def old_attention():
-        build.check(old.repro_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, B, S,
-            S, H, H, hd, hd ** -0.5, 0.0, 0, 0, 0, 0, stream), "baseline attention")
+        baseline_attention(old, q, k, v, out, hd ** -0.5)
 
     x, dt, A_log, Bm, Cm, _ = ssd_inputs(gen, *shapes["ssd"][0][1], torch.bfloat16)
     Bs, Ss, Hs, P = x.shape
@@ -4160,9 +4236,10 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
-                    help="root of an earlier checkout whose attention, SSD "
-                         "and WKV6 kernels and per-leaf encode and decode "
-                         "phase 5 times beside this one's")
+                    help="root of an earlier checkout whose attention "
+                         "(training and decode shapes), SSD and WKV6 kernels "
+                         "and per-leaf encode and decode phase 5 times beside "
+                         "this one's")
     baseline = ap.parse_args().baseline
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
@@ -4309,11 +4386,11 @@ def main():
                       else None)
             decode.append(("flash_attention", time_decode_attention,
                            (fa, MaskSpec, gen, label + kind, cfg, B, P, n, window,
-                            n_sets)))
+                            n_sets, False, old)))
         if cfg.family == "encdec":
             decode.append(("flash_attention", time_decode_attention,
                            (fa, MaskSpec, gen, label + " cross", cfg, B, P, n, 0,
-                            None, True)))
+                            None, True, old)))
     decode += [("wkv6", time_decode_wkv6, (W, gen)),
                ("ssd", time_decode_ssd, (SD, gen))]
     for name, timer, args in decode:

@@ -11,7 +11,7 @@
 // the bytes (q, k, v read once, o written once: 50 MB) slightly above the
 // tensor-core operations (12.9 GFLOP), so the bound is memory.
 //
-// Two kernels, one per input type:
+// The kernels, by input type and shape:
 //
 // * bf16 (the training path): a Hopper kernel on wgmma. A CTA of two
 //   warpgroups owns 128 query rows of one (b, h), 64 rows each; Q stays in
@@ -52,116 +52,52 @@
 //   256, through the dynamic shared-memory opt-in); the softmax rescales
 //   once per 16 keys.
 //
-// Both skip KV tiles that the mask removes entirely, which leaves the result
-// bit-identical (such a tile adds exp(-2e38 - m) = 0 and rescales by
-// exp(0) = 1); both mask ragged Sq/Skv edges, so no shape has to divide the
-// tile sizes; both schedule heavy causal tiles (high q index) first.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// * bf16 decode regime (Sq·G <= 64, G = H/K: every serving decode step, from
+//   G = 1 to granite's 48:1): one query row, or a few, over a KV cache. Its
+//   bound is the K/V bytes of the admitted rows, read once per kv head;
+//   q and o are a few KB. The training tile would give it one CTA per query
+//   head with 1 of 128 rows live, read a GQA group's K/V G times and walk
+//   every key tile in series on B·H CTAs (64 at PaliGemma's and gemma2's
+//   shapes, on 132 SMs). Instead:
+//     rows: a CTA owns one (b, kv head) and all Sq·G query rows that read
+//       it, row s·G + g of its tile being query s of head kh·G + g, so each
+//       K/V byte is read once per group;
+//     keys: the admitted range [lo, hi) (kv_range, kv_tiles' rule for
+//       the whole group) is cut into n_split runs of whole 64-key tiles, one
+//       CTA each (B·K·n_split CTAs). The split count comes from the caller
+//       (kernels/flash_attention.py:decode_split_plan: about one CTA an
+//       SM, two where the runs stay long) and is checked here. Each CTA streams its tiles through the
+//       same cp.async ring and 128-byte swizzle as the tile above; its 4
+//       warps split each tile's keys (past 16 rows: take a 16-row tile
+//       each) and combine in a fixed order through shared memory at the end;
+//     merge: at n_split = 1 the CTA writes the bf16 output. Otherwise it
+//       writes fp32 partials (m and l per row, the unnormalised o) to a
+//       workspace the caller allocates, and a second kernel merges them in
+//       split order (deterministic: no atomics). A split whose keys the
+//       mask removes keeps m at its start value and adds exp2(-1e30 - M) = 0.
+//     products: mma.sync.m16n8k16 (bf16 in, fp32 sums) on 16-row tiles,
+//       Q, K and V (transposed) fed by ldmatrix. wgmma needs 64 rows a
+//       product and would waste 63 of them at G = 1 and 56 at G = 8; the
+//       work is some 2 operations a byte of K/V, far below the card's ridge
+//       of about 295, so the products only have to keep up with the loads.
+//   The numerics are the tile's: scale or softcap·tanh(s·scale/softcap),
+//   log2 units, P rounded to bf16 before P·V, fp32 m, l and accumulator,
+//   m starting at -1e30, masked scores -2e38, output acc / max(l, 1e-30).
+//
+// All three skip KV tiles that the mask removes entirely, which leaves the
+// result bit-identical (such a tile adds exp(-2e38 - m) = 0 and rescales by
+// exp(0) = 1); all mask ragged Sq/Skv edges, so no shape has to divide the
+// tile sizes; the two training kernels schedule heavy causal tiles (high q
+// index) first.
+#include "flash_attention.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr float kNegInf = -2.0e38f;
-constexpr float kMInit = -1e30f;
-
-enum MaskKind { kCausal = 0, kFull = 1, kPrefix = 2 };
-
-struct Params {
-  int B, Sq, Skv, H, K, G;
-  float scale, softcap;
-  int kind, window, prefix_len, q_offset;
-};
-
-// The mask of models/layers._mask_block at absolute positions (qp, kp).
-__device__ __forceinline__ bool admitted(const Params& p, int qp, int kp) {
-  if (p.kind == kFull) return true;
-  const bool pre = p.kind == kPrefix && p.prefix_len > 0;
-  bool m = kp <= qp;
-  if (pre) m = m || (qp < p.prefix_len && kp < p.prefix_len);
-  if (p.window > 0) {
-    bool w_ok = (qp - kp) < p.window;
-    if (pre) w_ok = w_ok || (kp < p.prefix_len);
-    m = m && w_ok;
-  }
-  return m;
-}
-
-// The KV tiles [t_begin, t_end) that the mask can admit for any query row
-// in [q_start, q_start + kRows), in tiles of kKeys.
-template <int kRows = kBlockQ, int kKeys = kBlockK>
-__device__ __forceinline__ void kv_tiles(const Params& p, int q_start,
-                                         int& t_begin, int& t_end) {
-  const int q_last = min(q_start + kRows, p.Sq) - 1;
-  int lo = 0, hi = p.Skv;
-  if (p.kind != kFull) {
-    const bool pre = p.kind == kPrefix && p.prefix_len > 0;
-    hi = p.q_offset + q_last + 1;
-    if (pre && p.q_offset + q_start < p.prefix_len) hi = max(hi, p.prefix_len);
-    hi = min(max(hi, 0), p.Skv);
-    if (p.window > 0 && !pre) lo = max(0, p.q_offset + q_start - p.window + 1);
-  }
-  t_begin = lo / kKeys;
-  t_end = (hi + kKeys - 1) / kKeys;
-}
-
-// Block index -> (b, h, q tile), heaviest causal tiles first.
-template <int kRows = kBlockQ>
-__device__ __forceinline__ void tile_of_block(const Params& p, int& b, int& h,
-                                              int& q_start) {
-  const int nq = (p.Sq + kRows - 1) / kRows;
-  const int bh = blockIdx.x / nq;
-  b = bh / p.H;
-  h = bh % p.H;
-  q_start = (nq - 1 - (int)(blockIdx.x % nq)) * kRows;
-}
+using namespace repro_fa;
 
 // ---------------------------------------------------------------------------
 // bf16: Hopper (cp.async ring, wgmma).
 // ---------------------------------------------------------------------------
-
-constexpr int kWgRows = 128;    // query rows per CTA: two warpgroups of 64
-constexpr int kWgThreads = 256;
-constexpr int kWgKeys = 64;     // keys per KV tile
-// KV tiles in the ring: 3 (two loads ahead of the math), or 2 at hd 256,
-// where Q and three stages would not fit in a block's shared memory.
-template <int HD>
-__host__ __device__ constexpr int stages_for() { return HD >= 256 ? 2 : 3; }
-// The head dim padded to whole 64-column panels (128-byte swizzled rows):
-// 16, 32 and 64 to 64, 112 and 128 to 128, 256 stays.
-template <int HD>
-__host__ __device__ constexpr int hd_padded() { return (HD + 63) / 64 * 64; }
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is then unread).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// Copy rows [row0, row0 + R) of a (rows, HD) bf16 operand with row stride
-// `stride` elements into its shared tile: HDP / 64 panels of R rows of
-// 128 bytes, each 16-byte piece at its 128-byte-swizzle place (piece c of
-// row r at c ^ (r % 8)), the layout that the wgmma descriptors below name.
-// Rows at or past `limit` are zero-filled; columns HD..HDP-1 are never
-// written (they stay as the kernel zeroed them).
-template <int R, int HD, int HDP>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
-                                          long long stride, int row0, int limit) {
-  for (int e = threadIdx.x; e < R * (HD / 8); e += kWgThreads) {
-    const int r = e / (HD / 8), c8 = e % (HD / 8);
-    const bool ok = row0 + r < limit;
-    const uint32_t at = dst + (c8 / 8) * (R * 128) + r * 128 +
-                        (((c8 % 8) ^ (r % 8)) << 4);
-    cp_async16(at, src + (ok ? row0 + r : 0) * stride + c8 * 8, ok);
-  }
-}
 
 // A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
 // address, leading and stride byte offsets (16-byte units), layout B128.
@@ -229,40 +165,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x in one MUFU instruction (2 ulp; exp2f adds range fix-ups).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-enum TileClass { kEmpty = 0, kPartial = 1, kWhole = 2 };
-
-// What the mask does to the block of absolute query positions [qlo, qhi]
-// and keys [klo, khi]: admits no pair (kEmpty), admits every pair with
-// every key inside Skv (kWhole), or anything else (kPartial, masked per
-// element). Both verdicts are sufficient conditions, never guesses.
-__device__ __forceinline__ int tile_class(const Params& p, int qlo, int qhi,
-                                          int klo, int khi) {
-  const bool in_seq = khi < p.Skv;
-  if (p.kind == kFull) return in_seq ? kWhole : kPartial;
-  const bool pre = p.kind == kPrefix && p.prefix_len > 0;
-  const int pl = p.prefix_len;
-  // The causal part: k <= q, or both inside the prefix.
-  if (klo > qhi && !(pre && qlo < pl && klo < pl)) return kEmpty;
-  bool all = khi <= qlo || (pre && qhi < pl && khi < pl);
-  if (p.window > 0) {  // q - k < window, or k inside the prefix
-    if (qlo - khi >= p.window && !(pre && klo < pl)) return kEmpty;
-    all = all && (qhi - klo < p.window || (pre && khi < pl));
-  }
-  return all && in_seq ? kWhole : kPartial;
 }
 
 template <int HD>
@@ -615,6 +517,43 @@ flash_attention_fma_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 decode regime: the split merge (the kernel is in flash_attention.cuh).
+// ---------------------------------------------------------------------------
+
+// The split merge: one CTA per (b, kv head, row); the splits in order.
+__global__ void __launch_bounds__(kMergeThreads)
+flash_attention_merge_kernel(const float2* __restrict__ ws_ml,
+                             const float* __restrict__ ws_o,
+                             __nv_bfloat16* __restrict__ o, Params p, int hd,
+                             int n_split) {
+  const int R = p.Sq * p.G;
+  const int r = blockIdx.x % R, bk = blockIdx.x / R;
+  const int b = bk / p.K, kh = bk % p.K;
+  const int s = r / p.G, gg = r % p.G;
+  const float2* ml = ws_ml + (long long)bk * n_split * R + r;  // split j at ml[j R]
+  float M = ml[0].x;
+  for (int j = 1; j < n_split; ++j) M = fmaxf(M, ml[(long long)j * R].x);
+  float L = 0.f;
+  for (int j = 0; j < n_split; ++j) {
+    const float2 x = ml[(long long)j * R];
+    L += x.y * fast_exp2(x.x - M);
+  }
+  const float den = fmaxf(L, 1e-30f);
+  __nv_bfloat16* orow = o + (((long long)b * p.Sq + s) * p.H + kh * p.G + gg) * hd;
+  const float* obase = ws_o + ((long long)bk * n_split * R + r) * hd;
+  for (int d = 2 * threadIdx.x; d < hd; d += 2 * kMergeThreads) {
+    float o0 = 0.f, o1 = 0.f;
+    for (int j = 0; j < n_split; ++j) {
+      const float w = fast_exp2(ml[(long long)j * R].x - M);
+      const float2 x = *reinterpret_cast<const float2*>(obase + (long long)j * R * hd + d);
+      o0 += x.x * w;
+      o1 += x.y * w;
+    }
+    *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16(o0 / den, o1 / den);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
 
@@ -665,26 +604,71 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// The decode regime: its kernel, then (n_split > 1) the merge. Workspace
+// (fp32): (m, l) per partial row, then o.
+template <int HD>
+int launch_decode(const void* q, const void* k, const void* v, void* o,
+                  void* workspace, const Params& p, int t_begin, int n_tiles,
+                  int n_split, cudaStream_t stream) {
+  const long long R = (long long)p.Sq * p.G;
+  const long long groups = (long long)p.B * p.K;
+  float2* ws_ml = reinterpret_cast<float2*>(workspace);
+  float* ws_o = n_split > 1 ? reinterpret_cast<float*>(ws_ml + groups * n_split * R)
+                            : nullptr;
+  const int e = Decode<HD>::launch(q, k, v, o, ws_ml, ws_o, p, t_begin, n_tiles,
+                                   n_split, stream);
+  if (e != 0 || n_split == 1) return e;
+  flash_attention_merge_kernel<<<(unsigned)(groups * R), kMergeThreads, 0, stream>>>(
+      ws_ml, ws_o, (__nv_bfloat16*)o, p, HD, n_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kind: 0 = causal, 1 = full, 2 = prefix.
 // All tensors contiguous in the (B, S, heads, hd) layout and 16-byte aligned.
+// bf16 with Sq·(H/K) <= 64 takes the decode regime, cut into n_split runs
+// of key tiles (1 <= n_split <= min(64, the admitted range's 64-key tiles),
+// or 1 where it has none); past n_split = 1 it needs `workspace`: B·K·n_split
+// ·Sq·(H/K)·(hd + 2) floats. Every other call takes n_split = 1 and no
+// workspace.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int H, int K, int hd, float scale, float softcap,
-    int kind, int window, int prefix_len, int q_offset, void* stream) {
+    int kind, int window, int prefix_len, int q_offset, int n_split,
+    void* workspace, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   const Params p{B, Sq, Skv, H, K, H / K, scale, softcap,
                  kind, window, prefix_len, q_offset};
   const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype != 1 || (long long)Sq * p.G > kDecRows) {
+    if (n_split != 1) return (int)cudaErrorInvalidValue;
+    switch (hd) {
+      case 16: return launch<16>(dtype, q, k, v, o, p, st);
+      case 32: return launch<32>(dtype, q, k, v, o, p, st);
+      case 64: return launch<64>(dtype, q, k, v, o, p, st);
+      case 112: return launch<112>(dtype, q, k, v, o, p, st);
+      case 128: return launch<128>(dtype, q, k, v, o, p, st);
+      case 256: return launch<256>(dtype, q, k, v, o, p, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  int lo, hi;
+  kv_range(p, 0, Sq, lo, hi);  // all Sq rows in one block
+  const int t_begin = lo / kDecKeys;
+  int n_tiles = (hi + kDecKeys - 1) / kDecKeys - t_begin;
+  if (n_tiles < 0) n_tiles = 0;
+  const int most = n_tiles < kMaxSplits ? (n_tiles > 1 ? n_tiles : 1) : kMaxSplits;
+  if (n_split < 1 || n_split > most || (n_split > 1 && workspace == nullptr))
+    return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, o, p, st);
-    case 32: return launch<32>(dtype, q, k, v, o, p, st);
-    case 64: return launch<64>(dtype, q, k, v, o, p, st);
-    case 112: return launch<112>(dtype, q, k, v, o, p, st);
-    case 128: return launch<128>(dtype, q, k, v, o, p, st);
-    case 256: return launch<256>(dtype, q, k, v, o, p, st);
+    case 16: return launch_decode<16>(q, k, v, o, workspace, p, t_begin, n_tiles, n_split, st);
+    case 32: return launch_decode<32>(q, k, v, o, workspace, p, t_begin, n_tiles, n_split, st);
+    case 64: return launch_decode<64>(q, k, v, o, workspace, p, t_begin, n_tiles, n_split, st);
+    case 112: return launch_decode<112>(q, k, v, o, workspace, p, t_begin, n_tiles, n_split, st);
+    case 128: return launch_decode<128>(q, k, v, o, workspace, p, t_begin, n_tiles, n_split, st);
+    case 256: return launch_decode<256>(q, k, v, o, workspace, p, t_begin, n_tiles, n_split, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,5 @@
+// The attention kernel's decode regime at head dim 16 (flash_attention.cuh),
+// built in a file of its own so that nvcc builds the head dims side by side.
+#include "flash_attention.cuh"
+
+template struct repro_fa::Decode<16>;

@@ -207,6 +207,134 @@ def test_flash_attention_kernel_matches_plain(gen, case):
     chip_smoke.attention_case(fa, gen, c, theta, q_offset, scale)
 
 
+#: The one-row bf16 cases of the serving runs (``DECODE_Q_OFFSETS``, the
+#: window's edges, PaliGemma past its prefix, Whisper's self and cross
+#: attention, granite's 48:1 and llama3's 128:8 at full width).
+DECODE_SERVE = [c for c in chip_smoke.serve_attention_cases() if c[1][1] == 1]
+
+
+def _attention(q, k, v, c, q_offset, scale, n_split=None):
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, _ = c
+    return fa.flash_attention_kernel(
+        q, k, v, scale=d ** -0.5 if scale is None else scale, softcap=softcap,
+        kind=kind, window=window, prefix_len=prefix, q_offset=q_offset,
+        n_split=n_split)
+
+
+def _plain(q, k, v, c, q_offset, scale):
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, _ = c
+    return fa.attention_plain(q, k, v, MaskSpec(kind, window=window, prefix_len=prefix),
+                              scale=d ** -0.5 if scale is None else scale,
+                              softcap=softcap, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("case", DECODE_SERVE, ids=_ids(DECODE_SERVE))
+def test_decode_regime_at_one_split_the_plans_and_the_most(gen, case):
+    """Each serving decode case takes the decode regime and holds the plain
+    version at ``_tol`` at n_split 1 (no merge), the plan's and the most
+    the entry allows; two calls give the same bits."""
+    _, c, theta, q_offset, scale = case
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = c
+    assert fa.regime(dt, Sq, H, K) == "decode"
+    plan = fa.decode_split_plan(B, Sq, Skv, K, kind, window, prefix, q_offset)
+    q, k, v = chip_smoke.attention_inputs(gen, c, theta, q_offset)
+    want = _plain(q, k, v, c, q_offset, scale).float()
+    for n in sorted({1, plan.n_split, min(fa.MAX_SPLITS, max(plan.n_tiles, 1))}):
+        out = _attention(q, k, v, c, q_offset, scale, n)
+        torch.testing.assert_close(out.float(), want, **chip_smoke.tol(dt))
+        assert torch.equal(out, _attention(q, k, v, c, q_offset, scale, n)), n
+
+
+def test_decode_split_the_mask_empties(gen):
+    """A prefix of 64 and a window of 64 at position 400 leave keys 64-336
+    out: at one split per tile, splits 1-4 hold no admitted key."""
+    c = (2, 1, 512, 8, 2, 64, "prefix", 64, 64, 0.0, bf16)
+    q, k, v = chip_smoke.attention_inputs(gen, c, 0.0, 400)
+    plan = fa.decode_split_plan(2, 1, 512, 2, "prefix", 64, 64, 400)
+    assert plan.n_tiles == 7
+    want = _plain(q, k, v, c, 400, None).float()
+    for n in (1, 7):
+        torch.testing.assert_close(_attention(q, k, v, c, 400, None, n).float(), want,
+                                   **chip_smoke.tol(bf16))
+
+
+#: Edges of the admitted key range: (case, q_offset). A window starting
+#: mid-tile and on a tile's first key, a prefix wider than the position,
+#: q_offset 0, a full mask over a ragged Skv, a causal range ending mid-tile.
+ENTRY_RANGE_CASES = [
+    ((1, 1, 1000, 8, 2, 64, "causal", 100, 0, 50.0, bf16), 700),
+    ((1, 1, 1000, 8, 2, 64, "causal", 101, 0, 0.0, bf16), 740),
+    ((1, 1, 900, 8, 1, 128, "prefix", 0, 300, 0.0, bf16), 200),
+    ((1, 1, 900, 8, 1, 128, "prefix", 0, 300, 0.0, bf16), 650),
+    ((2, 1, 333, 4, 4, 64, "causal", 0, 0, 0.0, bf16), 0),
+    ((2, 1, 1500, 12, 12, 64, "full", 0, 0, 0.0, bf16), 0),
+    ((1, 1, 1100, 16, 2, 256, "causal", 0, 0, 0.0, bf16), 1000),
+]
+
+
+@pytest.mark.parametrize("case, q_offset", ENTRY_RANGE_CASES,
+                         ids=[f"{c[6]}-w{c[7]}-p{c[8]}-Skv{c[2]}-at{o}"
+                              for c, o in ENTRY_RANGE_CASES])
+def test_decode_entry_cuts_the_plans_tiles(gen, case, q_offset):
+    """The C entry's tile range is the plan's: at one split per tile (the
+    plan's ``n_tiles``) every split is one of the plan's tiles, so a range
+    shifted by a tile would drop an admitted tile and miss the plain
+    version; one split more is refused, so the entry counts no more
+    tiles."""
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+    plan = fa.decode_split_plan(B, Sq, Skv, K, kind, window, prefix, q_offset)
+    assert 1 <= plan.n_tiles < fa.MAX_SPLITS, plan
+    q, k, v = chip_smoke.attention_inputs(gen, case, 0.0, q_offset)
+    torch.testing.assert_close(
+        _attention(q, k, v, case, q_offset, None, plan.n_tiles).float(),
+        _plain(q, k, v, case, q_offset, None).float(), **chip_smoke.tol(dt))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _attention(q, k, v, case, q_offset, None, plan.n_tiles + 1)
+
+
+def test_decode_entry_refuses_a_split_outside_its_limits(gen):
+    c = (1, 1, 300, 8, 1, 64, "causal", 0, 0, 0.0, bf16)
+    q, k, v = chip_smoke.attention_inputs(gen, c, 0.0, 299)
+    for n in (0, 6):  # 5 tiles of keys
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _attention(q, k, v, c, 299, None, n)
+    f32c = c[:-1] + (f32,)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # no split outside the regime
+        _attention(*(x.float() for x in (q, k, v)), f32c, 299, None, 2)
+
+
+@pytest.mark.parametrize("H, want", [(64, "flash_attention_decode_kernel"),
+                                     (65, "flash_attention_wgmma_kernel")])
+def test_dispatch_either_side_of_sq_g_64(gen, H, want):
+    """Sq·G = 64 takes the decode kernel (and its merge), 65 the wgmma
+    tile: the profiler names the kernels that ran, and both hold the plain
+    version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = (2, 1, 700, H, 1, 128, "causal", 0, 0, 0.0, bf16)
+    q, k, v = chip_smoke.attention_inputs(gen, c, 0.0, 650)
+    assert fa.regime(bf16, 1, H, 1) == ("decode" if H == 64 else "wgmma")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = _attention(q, k, v, c, 650, None)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    assert want in names, names
+    other = ("flash_attention_wgmma_kernel" if H == 64
+             else "flash_attention_decode_kernel")
+    assert other not in names and ("merge" in names) == (H == 64), names
+    torch.testing.assert_close(out.float(), _plain(q, k, v, c, 650, None).float(),
+                               **chip_smoke.tol(bf16))
+
+
+def test_decode_counts_one_launch_for_its_two_kernels(gen):
+    q = torch.randn((2, 1, 8, 64), generator=gen, device="cuda").to(bf16)
+    kv = torch.randn((2, 700, 1, 64), generator=gen, device="cuda").to(bf16)
+    assert fa.decode_split_plan(2, 1, 700, 1, q_offset=650).n_split > 1
+    ops.reset_launches()
+    ops.flash_attention(q, kv, kv, MaskSpec("causal"), scale=0.125, q_offset=650)
+    assert ops.launches["flash_attention"] == 1
+
+
 def test_wrappers_launch_and_count_on_cuda(gen):
     ops.reset_launches()
     x = torch.randn(1000, generator=gen, device="cuda")
