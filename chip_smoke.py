@@ -14,7 +14,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    attention over the cache at q_offsets 0 to the cache's last row and a
    ragged Skv, gemma2's local (window 4,096) and global layers with softcap
    50 and scale 0.0625 either side of where the window binds, granite's
-   48:1 and llama3's 128:8 at full width; WKV6 at S 1 to 33 from a state)
+   48:1 and llama3's 128:8 at full width; WKV6 at S 1 to 33 from a state;
+   SSD at S 1 to 65 from a state on the views ``block_apply`` passes;
+   the SSD and WKV6 decode regimes at every (P, N) and head dim in both
+   dtypes, SSD's on such views)
    PaliGemma's prefix mask over 256 patches at head dim 256, MQA 8:1, in
    training, the serving prefill and decode, and fp32 and bf16 cases at
    head dim 256; Arctic's GQA 56:8 at head dim 128 and Kimi's 64:8 at head
@@ -86,8 +89,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    counts; prefill ms, decode ms per token (median, p90; each step closed
    by a sync), decode tokens/s,
    the decode loop timed as one window with one sync, peak memory, the
-   device's busy share of one profiled decode step and its five largest
-   device operations; the bf16 prefill's logits against the cache-free
+   device's busy share of one profiled decode step, its device events and
+   its five largest device operations, the SSD and WKV6 decode regimes'
+   kernels once per layer in it and no chunked or sequential launch; the
+   bf16 prefill's logits against the cache-free
    forward over the same prompt within ``_tol`` (GPT-2) or ``_rec_tol``
    (RWKV-6, Zamba2); the bf16 drift of every decode step against the
    cache-free forward (reported, not gated); fp32 prefill and 7 forced
@@ -127,7 +132,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    ``scaled_dot_product_attention`` where it computes the same function:
    it has no softcap; each with the decode regime's split count, CTAs and
    share of the memory rate), WKV6 and SSD as device time per launch, one
-   input set per layer (per application of Zamba2's shared block); attention
+   input set per layer (per application of Zamba2's shared block), the
+   decode regimes in turns with this tree's sequential and chunked kernels
+   at S = 1 (SSD's also with the copies the chunked kernel's wrapper makes)
+   and at each of ``DECODE_STEP_SWEEP`` steps; attention
    at PaliGemma's training shape (prefix 256, hd 256), Arctic's (causal,
    GQA 56:8, hd 128) and Kimi's (causal, GQA 64:8, hd 112; both also their
    serving prefill into the cache of 1152) and Whisper's encoder, decoder
@@ -186,8 +194,8 @@ Phases, each of which fails hard (any mismatch exits non-zero):
 
     python3 chip_smoke.py --baseline DIR
 
-adds to phase 5 the times of the attention (at the training and the
-decode shapes), SSD and WKV6 kernels and the per-leaf encode and decode
+adds to phase 5 the times of the attention, SSD and WKV6 kernels (at the
+training and the decode shapes) and the per-leaf encode and decode
 built from the checkout at DIR (an earlier commit, unpacked), on the
 same inputs, in turns with this checkout's (baseline, kernel, kernel,
 baseline).
@@ -413,12 +421,19 @@ FP32_DECODE_STEPS = 7
 # middle, the cache's last row.
 DECODE_Q_OFFSETS = (0, 1, 63, 64, 511, SERVE_CACHE - 1)
 # The decode WKV6's sequence lengths: one step, two, and either side of the
-# kernel's 32-step staging.
+# sequential kernel's 32-step staging (and of the decode regime's last
+# step, added where the cases are made).
 DECODE_WKV_STEPS = (1, 2, 31, 33)
 # The decode SSD's sequence lengths from a carried state: one step, two,
 # and either side of the bf16 kernel's 64-row chunk (the rows past S are
-# zero-filled).
+# zero-filled; and either side of the decode regime's last step).
 DECODE_SSD_STEPS = (1, 2, 63, 65)
+# The decode regimes' cases at every (P, N) and head dim: B·H = 15, so the
+# SSD regime's last CTA is part-filled at most (P, N).
+DECODE_B, DECODE_H = 3, 5
+# Step counts at which phase 5 times each decode regime against the
+# sequential or chunked kernel, in turns (kernels.ssd/wkv6.DECODE_MAX_STEPS).
+DECODE_STEP_SWEEP = (1, 2, 4, 8, 16, 32, 64)
 
 
 def tol(dtype):
@@ -1019,15 +1034,23 @@ def wkv6_inputs(gen, B, S, H, hd, dtype, decay=(-8.0, 3.0), state=False):
     return r, k, v, lw, u, st
 
 
-def ssd_inputs(gen, B, S, H, P, N, dtype, state=False):
+def ssd_inputs(gen, B, S, H, P, N, dtype, state=False, strided=False):
     """x, Bm, Cm in ``dtype``; dt = softplus(normal) + 0.01 and A_log in
-    [-1, 1.5), as the JAX sweep draws them; state."""
-    x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+    [-1, 1.5), as the JAX sweep draws them; state. With ``strided``, x, Bm
+    and Cm are views of one (B, S, H·P + 2N) tensor, as
+    ``mamba2.block_apply`` splits them."""
+    if strided:
+        xbc = torch.randn((B, S, H * P + 2 * N), generator=gen, device="cuda").to(dtype)
+        x, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
+        x = x.reshape(B, S, H, P)
+    else:
+        x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, H), generator=gen, device="cuda")) + 0.01
     A_log = torch.rand((H,), generator=gen, device="cuda") * 2.5 - 1.0
-    Bm, Cm = (torch.randn((B, S, N), generator=gen, device="cuda").to(dtype)
-              for _ in range(2))
+    if not strided:
+        Bm, Cm = (torch.randn((B, S, N), generator=gen, device="cuda").to(dtype)
+                  for _ in range(2))
     st = (torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.1
           if state else None)
     return x, dt, A_log, Bm, Cm, st
@@ -1053,11 +1076,14 @@ def wkv6_cases():
     * bf16 r/k/v over the clip range, against chunk 64.
 
     Then the RWKV-6 serving run's decode, batch 8 at each of
-    ``DECODE_WKV_STEPS`` steps from a nonzero state (fp32, as the run gives
-    them), with the init's decays against the plain version and with decays
-    over the clip range against it and the fp64 oracle; and the JAX sweep
+    ``DECODE_WKV_STEPS`` steps and either side of the decode regime's last
+    step from a nonzero state (fp32, as the run gives them), with the
+    init's decays against the plain version and with decays over the clip
+    range against it and the fp64 oracle; the decode regime at every head
+    dim, fp32 and bf16, one step over the clip range; and the JAX sweep
     with initial states, at chunk 64."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as W
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
@@ -1067,11 +1093,16 @@ def wkv6_cases():
                   (label, (*shape, (-8.0, 3.0), f32, False, 16, True)),
                   (label, (*shape, (-8.0, 3.0), bf16, False, 64, False))]
     cfg = get_config("rwkv6-1.6b")
-    for S in DECODE_WKV_STEPS:
+    for S in sorted({*DECODE_WKV_STEPS, W.DECODE_MAX_STEPS, W.DECODE_MAX_STEPS + 1}):
         shape = (SERVE_BATCH, S, cfg.n_heads, cfg.head_dim)
         label = f"rwkv6-1.6b serve decode S={S}"
         cases += [(label, (*shape, "init", f32, True, 64, False)),
                   (label, (*shape, (-8.0, 3.0), f32, True, 16, True))]
+    for hd in W.HEAD_DIMS:
+        for dt in (f32, bf16):
+            cases.append((f"decode regime hd={hd}",
+                          (DECODE_B, 1, DECODE_H, hd, (-8.0, 3.0), dt, True, 16,
+                           dt == f32)))
     return cases + [(f"sweep {i}", (B, S, H, hd, (lo, 0.5), dt, True, 64, False))
                     for i, (B, S, H, hd, lo, dt) in enumerate(WKV_SWEEP)]
 
@@ -1112,40 +1143,50 @@ def check_wkv6(W, gen):
             main_err = max(main_err, err)
             B, S, H, hd, decay, dt, with_state, chunk, _ = case
             log(f"wkv6 {label} {(B, S, H, hd)} {str(dt)[6:]} r/k/v, decays "
-                f"{decay}{', from a state' if with_state else ''}: max "
-                f"|kernel - plain (chunk {chunk})| {err:.3e}")
+                f"{decay}{', from a state' if with_state else ''} "
+                f"({W.regime(dt, S)}): max |kernel - plain (chunk {chunk})| "
+                f"{err:.3e}")
     torch.cuda.synchronize()
     log(f"wkv6: {len(WKV_SWEEP)} sweep cases within _rec_tol")
     return main_err
 
 
 def ssd_cases():
-    """``(label, case)``, case ``(B, S, H, P, N, dtype, with_state)``: the
-    Zamba2 path's shapes (bf16 x/B/C, as the path gives them); the Zamba2
-    serving run's prefill (batch 8, the prompt, from a state) and decode,
-    batch 8 at each of ``DECODE_SSD_STEPS`` from a nonzero state; then the
-    JAX sweep and the bf16 edges with initial states."""
+    """``(label, case)``, case ``(B, S, H, P, N, dtype, with_state,
+    strided)``: the Zamba2 path's shapes (bf16 x/B/C, as the path gives
+    them); the Zamba2 serving run's prefill (batch 8, the prompt, from a
+    state) and decode, batch 8 at each of ``DECODE_SSD_STEPS`` from a
+    nonzero state, x/B/C as the views ``block_apply`` passes; the decode
+    regime at every (P, N) in both dtypes on such views, at a B·H that
+    leaves the last CTA part-filled at most (P, N); then the JAX sweep and
+    the bf16 edges with initial states."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd as SD
     from repro_torch.models import mamba2
 
-    bf16 = torch.bfloat16
-    cases = [(f"{path} B={shape[0]}", (*shape, bf16, False))
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(f"{path} B={shape[0]}", (*shape, bf16, False, False))
              for path, shape in main_shapes()["ssd"]]
     _, H, P, N = mamba2._dims(get_config("zamba2-1.2b"))
     cases.append(("zamba2-1.2b serve prefill",
-                  (SERVE_BATCH, SERVE_PROMPT, H, P, N, bf16, True)))
-    cases += [(f"zamba2-1.2b serve decode S={S}", (SERVE_BATCH, S, H, P, N, bf16, True))
-              for S in DECODE_SSD_STEPS]
-    return (cases + [(f"sweep {i}", (*c, True)) for i, c in enumerate(SSD_SWEEP)]
-            + [(f"sweep bf16 {i}", (*c, True)) for i, c in enumerate(SSD_BF16_EDGES)])
+                  (SERVE_BATCH, SERVE_PROMPT, H, P, N, bf16, True, True)))
+    cases += [(f"zamba2-1.2b serve decode S={S}",
+               (SERVE_BATCH, S, H, P, N, bf16, True, True))
+              for S in sorted({*DECODE_SSD_STEPS, SD.DECODE_MAX_STEPS,
+                               SD.DECODE_MAX_STEPS + 1})]
+    cases += [(f"decode regime P={P} N={N}", (DECODE_B, 1, DECODE_H, P, N, dt, True, True))
+              for P in SD.HEAD_DIMS for N in SD.STATE_DIMS for dt in (f32, bf16)]
+    return (cases + [(f"sweep {i}", (*c, True, False)) for i, c in enumerate(SSD_SWEEP)]
+            + [(f"sweep bf16 {i}", (*c, True, False))
+               for i, c in enumerate(SSD_BF16_EDGES)])
 
 
 def ssd_case(SD, gen, case):
     """The kernel against ``ssd_plain`` (chunk 64), y and final state, at
     ``_rec_tol`` on one case of ``ssd_cases``. Returns max |kernel - plain|
     of y."""
-    B, S, H, P, N, dt, with_state = case
-    args = ssd_inputs(gen, B, S, H, P, N, dt, state=with_state)
+    B, S, H, P, N, dt, with_state, strided = case
+    args = ssd_inputs(gen, B, S, H, P, N, dt, state=with_state, strided=strided)
     y, hf = SD.ssd_kernel(*args)
     ref_y, ref_h = SD.ssd_plain(*args, chunk=64)
     err = _close(f"ssd {case}", y, ref_y, dt)
@@ -1161,9 +1202,10 @@ def check_ssd(SD, gen):
         err = ssd_case(SD, gen, case)
         if not label.startswith("sweep"):
             main_err = max(main_err, err)
-            log(f"ssd {label} {case[:4]} N={case[4]} bf16"
-                f"{', from a state' if case[6] else ''}: max |kernel - plain| "
-                f"{err:.3e}")
+            log(f"ssd {label} {case[:4]} N={case[4]} {str(case[5])[6:]}"
+                f"{', from a state' if case[6] else ''}"
+                f"{', strided views' if case[7] else ''} ({SD.regime(case[5], case[1])}): "
+                f"max |kernel - plain| {err:.3e}")
     torch.cuda.synchronize()
     log(f"ssd: {len(SSD_SWEEP)} sweep cases and {len(SSD_BF16_EDGES)} bf16 "
         f"edges within _rec_tol")
@@ -2499,6 +2541,12 @@ def serve_fp32_check(cfg, params, tokens, n_prompt, cache_len, patches=None,
     return out
 
 
+#: (kernel, the decode regime's CUDA kernel, the other kernels of its
+#: wrapper) by name, as a profile lists them.
+DECODE_KERNELS = (("ssd", "ssd_decode_kernel", ("ssd_chunked_kernel", "ssd_fwd_kernel")),
+                  ("wkv6", "wkv6_decode_kernel", ("wkv6_fwd_kernel",)))
+
+
 def serve_path(ops, name, cfg, B, P, n_tokens):
     """One serving run (``serve_runs``) at full width through the serving
     launcher's ``generate`` (``Model.prefill`` and ``Model.decode_step``):
@@ -2526,7 +2574,9 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
       cache-free fp32 forward (``serve_fp32_check``, gated), with the
       family's planted faults;
     * one profiled decode step: device busy time, its share of the median
-      step, and the five device operations that take the most of it.
+      step, and the five device operations that take the most of it; the
+      SSD and WKV6 decode regimes' kernels launched once per layer in it
+      and their other kernels not at all (``DECODE_KERNELS``, gated).
 
     Returns the launches."""
     from torch.profiler import ProfilerActivity, profile
@@ -2653,6 +2703,20 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
         "busy_share_of_window_step": busy / summary["decode_window_ms_per_token"],
         "top_device_ops": [{"ms": ms, "count": count, "name": key[:120]}
                            for ms, count, key in rows[:5]]}
+    # The recurrences' decode regimes: each layer's kernel once in the step,
+    # and no launch of the chunked or sequential kernels.
+    first = serve_launches(cfg, 1)
+    for kernel, want, others in DECODE_KERNELS:
+        n_step = serve_launches(cfg, 2)[kernel] - first[kernel]
+        if not n_step:
+            continue
+        got = sum(count for _, count, key in rows if want in key)
+        other = sum(count for _, count, key in rows if any(o in key for o in others))
+        if got != n_step or other:
+            raise AssertionError(f"serving {name}: a profiled decode step launched "
+                                 f"{want} {got} times (expected {n_step}) and "
+                                 f"{other} of {others}")
+        summary["profiled_decode"][f"{want}_launches"] = got
     del logits, cache
 
     fp = summary["fp32_check"]
@@ -2667,6 +2731,7 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
         f"{peak / 1e9:.2f} GB; launches "
         f"{json.dumps(launches)}; a profiled "
         f"decode step: device busy {busy:.3f} ms, "
+        f"{summary['profiled_decode']['device_events']} device events, "
         f"{summary['profiled_decode']['busy_share_of_median_step']:.1%} of the "
         f"median step, "
         f"{summary['profiled_decode']['busy_share_of_window_step']:.1%} of the "
@@ -2790,9 +2855,9 @@ def _kernel_group(key):
     k = key.lower()
     if "flash_attention" in k:
         return "flash-attention kernel (forward and remat recompute)"
-    if "wkv6_fwd" in k:
+    if "wkv6_fwd" in k or "wkv6_decode" in k:
         return "wkv6 kernel (forward and remat recompute)"
-    if "ssd_fwd" in k or "ssd_chunked" in k:
+    if "ssd_fwd" in k or "ssd_chunked" in k or "ssd_decode" in k:
         return "ssd kernel (forward and remat recompute)"
     if "gemm" in k and "bf16" in k:
         return "bf16 GEMMs (projections, MLP, unembedding)"
@@ -3163,50 +3228,177 @@ def time_decode_attention(fa, MaskSpec, gen, name, cfg, B, P, n_tokens,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
-def time_decode_wkv6(W, gen):
+def _launch_floor(sets):
+    """Device ms per launch of a kernel that does next to nothing (one
+    float zeroed), in ``_per_launch``'s loop over as many sets: what a
+    launch costs the decode timings before any work."""
+    one = torch.zeros(1, device="cuda")
+    return _per_launch(lambda *a: one.zero_(), sets)[0]
+
+
+def _decode_turns(old_fn, new_fn, sets):
+    """Device ms per launch of ``old_fn`` and ``new_fn`` over ``sets``, in
+    turns (old, new, new, old): the mean of each pair, None if a turn's
+    device time was not measured."""
+    o1, n1, n2, o2 = (_per_launch(fn, sets)[0] for fn in (old_fn, new_fn, new_fn, old_fn))
+    if None in (o1, n1, n2, o2):
+        return None, None
+    return (o1 + o2) / 2, (n1 + n2) / 2
+
+
+def _step_sweep(make_sets, launch, others, name):
+    """The decode regime against the kernel ``others[dtype]`` (the chunked
+    or sequential one) through ``launch(kind, *args)`` at each of
+    ``DECODE_STEP_SWEEP``, in turns, one input set per layer, for each
+    dtype: the step counts ``DECODE_MAX_STEPS`` is set from."""
+    sweep = []
+    for dtype, other in others.items():
+        for S in DECODE_STEP_SWEEP:
+            sets = make_sets(S, dtype)
+            old_ms, new_ms = _decode_turns(lambda *a: launch(other, *a),
+                                           lambda *a: launch("decode", *a), sets)
+            sweep.append({"dtype": str(dtype)[6:], "S": S, "decode_ms": new_ms,
+                          f"{other}_ms": old_ms})
+            log(f"{name} {str(dtype)[6:]} at S={S}: decode regime {_ms(new_ms)}, "
+                f"the {other} kernel {_ms(old_ms)} per launch")
+            del sets
+    return sweep
+
+
+def time_decode_wkv6(W, gen, old=None):
     """The kernel at RWKV-6's decode shape, one step from a carried state,
     fp32 r/k/v as the run gives them, on one state per layer; beside it the
-    plain version. No library call computes the recurrence."""
+    plain version. No library call computes the recurrence. In turns with
+    it: this tree's sequential kernel at S = 1 (the old path, through
+    ``repro_wkv6_fwd``), and with a baseline library ``old`` that
+    checkout's; then both regimes at each of ``DECODE_STEP_SWEEP``, fp32
+    and bf16 r/k/v."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels import cost
 
     cfg = get_config("rwkv6-1.6b")
     B, H, hd = SERVE_BATCH, cfg.n_heads, cfg.head_dim
-    sets = [wkv6_inputs(gen, B, 1, H, hd, torch.float32, decay="init", state=True)
-            for _ in range(cfg.n_layers)]
+    f32 = torch.float32
+
+    def make_sets(S, dtype=f32):
+        return [wkv6_inputs(gen, B, S, H, hd, dtype, decay="init", state=True)
+                for _ in range(cfg.n_layers)]
+
+    def sequential(*a):
+        return W.wkv6_launch("sequential", *a)
+
+    sets = make_sets(1)
+    if W.regime(f32, 1) != "decode":
+        raise AssertionError("wkv6: a decode step does not take the decode regime")
+    for got, want in zip(W.wkv6_kernel(*sets[0]), sequential(*sets[0])):
+        torch.testing.assert_close(got, want, **rec_tol(f32))
     ms, window = _per_launch(W.wkv6_kernel, sets)
+    floor_ms = _launch_floor(sets)
+    old_ms, turns_ms = _decode_turns(sequential, W.wkv6_kernel, sets)
+    baseline = {}
+    if old is not None:
+        out = torch.empty((B, 1, H, hd), dtype=f32, device="cuda")
+        sf = torch.empty((B, H, hd, hd), dtype=f32, device="cuda")
+
+        def base(r, k, v, lw, u, st):
+            build.check(old.repro_wkv6_fwd(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                u.data_ptr(), st.data_ptr(), out.data_ptr(), sf.data_ptr(), 0, B,
+                1, H, hd, torch.cuda.current_stream().cuda_stream), "baseline wkv6")
+
+        base(*sets[0])
+        torch.testing.assert_close(out, W.wkv6_kernel(*sets[0])[0], **rec_tol(f32))
+        b_ms, n_ms = _decode_turns(base, W.wkv6_kernel, sets)
+        baseline = dict(baseline_ms=b_ms, baseline_turns_ms=n_ms)
     plain_ms, plain_window = _per_launch(lambda *a: W.wkv6_plain(*a, chunk=64),
                                          sets, reps=1)
+    del sets
+    steps = _step_sweep(make_sets, W.wkv6_launch,
+                        {f32: "sequential", torch.bfloat16: "sequential"}, "wkv6")
     # r, k, v, lw read, out written; u read; the state read and written.
     flops, nbytes = cost.wkv6(B, 1, H, hd, state_in=True)
-    return dict(shape=[B, 1, H, hd], ms=ms, window_ms=window,
-                plain_ms=plain_ms, plain_window_ms=plain_window, library_ms=None,
+    return dict(shape=[B, 1, H, hd], regime=W.regime(f32, 1),
+                decode_max_steps=W.DECODE_MAX_STEPS,
+                ctas=B * H * (2 if hd == 64 else 1),
+                bytes_rate_share=None if ms is None else nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S,
+                ms=ms, window_ms=window, turns_ms=turns_ms, old_path_ms=old_ms,
+                launch_floor_ms=floor_ms, **baseline, plain_ms=plain_ms, plain_window_ms=plain_window,
+                library_ms=None, steps=steps,
                 bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
 
 
-def time_decode_ssd(SD, gen):
+def time_decode_ssd(SD, gen, old=None):
     """The kernel at Zamba2's decode shape, one step from a carried state,
-    bf16 x/B/C as the run gives them, on one state per layer; beside it the
-    plain version (at the chunk ``ops.ssd`` gives it). No library call
-    computes the scan. The bound counts the recurrence's fp32 work."""
+    bf16 x/B/C as the views ``block_apply`` passes, on one state per layer;
+    beside it the plain version (at the chunk ``ops.ssd`` gives it). No
+    library call computes the scan. The bound counts the recurrence's fp32
+    work. In turns with it: this tree's chunked kernel at S = 1 (the old
+    path through ``repro_ssd_fwd``, with the three copies its wrapper makes
+    of the views), the same kernel on contiguous copies made beforehand
+    (the kernel alone), and with a baseline library ``old`` that
+    checkout's kernel on those copies; then the decode regime against the
+    chunked (bf16) and sequential (fp32) kernels at each of
+    ``DECODE_STEP_SWEEP``."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels import cost
     from repro_torch.models import mamba2
 
     cfg = get_config("zamba2-1.2b")
     _, H, P, N = mamba2._dims(cfg)
     B = SERVE_BATCH
-    sets = [ssd_inputs(gen, B, 1, H, P, N, torch.bfloat16, state=True)
-            for _ in range(cfg.n_layers)]
+    bf16 = torch.bfloat16
+
+    def make_sets(S, dtype=bf16):
+        return [ssd_inputs(gen, B, S, H, P, N, dtype, state=True, strided=True)
+                for _ in range(cfg.n_layers)]
+
+    def chunked(*a):
+        return SD.ssd_launch("chunked", *a)
+
+    sets = make_sets(1)
+    if SD.regime(bf16, 1) != "decode":
+        raise AssertionError("ssd: a decode step does not take the decode regime")
+    for got, want in zip(SD.ssd_kernel(*sets[0]), chunked(*sets[0])):
+        torch.testing.assert_close(got, want, **rec_tol(bf16))
     ms, window = _per_launch(SD.ssd_kernel, sets)
+    floor_ms = _launch_floor(sets)
+    old_ms, turns_ms = _decode_turns(chunked, SD.ssd_kernel, sets)
+    copies = [tuple(t.contiguous() for t in a[:5]) + a[5:] for a in sets]
+    old_kernel_ms, _ = _decode_turns(chunked, SD.ssd_kernel, copies)
+    baseline = {}
+    if old is not None:
+        y = torch.empty((B, 1, H, P), dtype=torch.float32, device="cuda")
+        hf = torch.empty((B, H, P, N), dtype=torch.float32, device="cuda")
+
+        def base(x, dt, A_log, Bm, Cm, st):
+            build.check(old.repro_ssd_fwd(
+                x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), st.data_ptr(), y.data_ptr(), hf.data_ptr(), 1, B, 1,
+                H, P, N, torch.cuda.current_stream().cuda_stream), "baseline ssd")
+
+        base(*copies[0])
+        torch.testing.assert_close(y, SD.ssd_kernel(*sets[0])[0], **rec_tol(bf16))
+        b_ms, n_ms = _decode_turns(base, SD.ssd_kernel, copies)
+        baseline = dict(baseline_ms=b_ms, baseline_turns_ms=n_ms)
+    del copies
     plain_ms, plain_window = _per_launch(lambda *a: SD.ssd_plain(*a, chunk=64),
                                          sets, reps=1)
+    del sets
+    steps = _step_sweep(make_sets, SD.ssd_launch,
+                        {bf16: "chunked", torch.float32: "sequential"}, "ssd")
     # x, B, C read (bf16), dt and A_log read, y written (fp32); the state
     # read and written (fp32). Per state element: h = a*h + (dt*x)*B (mul,
     # FMA), y += C*h (FMA).
     flops, nbytes = cost.ssd(B, 1, H, P, N, state_in=True)
-    return dict(shape=[B, 1, H, P, N], ms=ms, window_ms=window,
-                plain_ms=plain_ms, plain_window_ms=plain_window, library_ms=None,
+    return dict(shape=[B, 1, H, P, N], regime=SD.regime(bf16, 1),
+                decode_max_steps=SD.DECODE_MAX_STEPS,
+                ctas=-(-B * H * (P // 8) * (N // 4) // 128),
+                bytes_rate_share=None if ms is None else nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S,
+                ms=ms, window_ms=window, turns_ms=turns_ms, old_path_ms=old_ms,
+                old_kernel_ms=old_kernel_ms, launch_floor_ms=floor_ms, **baseline, plain_ms=plain_ms,
+                plain_window_ms=plain_window, library_ms=None, steps=steps,
                 bound=bound(nbytes, flops, PEAK_FP32_FLOPS))
 
 
@@ -4391,8 +4583,8 @@ def main():
             decode.append(("flash_attention", time_decode_attention,
                            (fa, MaskSpec, gen, label + " cross", cfg, B, P, n, 0,
                             None, True, old)))
-    decode += [("wkv6", time_decode_wkv6, (W, gen)),
-               ("ssd", time_decode_ssd, (SD, gen))]
+    decode += [("wkv6", time_decode_wkv6, (W, gen, old)),
+               ("ssd", time_decode_ssd, (SD, gen, old))]
     for name, timer, args in decode:
         t = timer(*args)
         bound_ms, bound_by = t.pop("bound")

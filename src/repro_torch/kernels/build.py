@@ -51,6 +51,10 @@ SIGNATURES = {
     # x, dt, A_log, Bm, Cm, state (or null), y, final state; dtype, B, S, H,
     # P, N.
     "repro_ssd_fwd": [_P] * 8 + [_I32] * 6 + [_P],
+    # The decode regimes: as above; SSD's also the row strides of x and of
+    # Bm/Cm, in elements.
+    "repro_wkv6_decode": [_P] * 8 + [_I32] * 5 + [_P],
+    "repro_ssd_decode": [_P] * 8 + [_I32] * 6 + [_I64, _I64, _P],
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,12 @@ cores (one CTA per (b, h), chunk 64, the fp32 state in registers, bf16
 products with fp32 sums, the operands it computes split as bf16 hi + lo);
 for fp32 it walks the sequence one step at a time on the CUDA cores.
 ``chunk`` is accepted and ignored: the bf16 kernel's chunk of 64 is its own
-tile.
+tile. Calls of at most ``DECODE_MAX_STEPS`` steps (a serving decode step
+from the carried state) take the decode regime instead (``csrc/
+ssd_decode.cu``, either dtype): the fp32 state streamed once through
+registers, no shared memory, and x, B and C read through their row strides,
+so the views that ``models/mamba2.block_apply`` splits from one tensor
+need no copy (``regime`` names the kernel a call takes).
 
 ``ssd_plain`` is ``repro/models/mamba2.ssd_chunked``: the chunked form with
 every exponent a non-positive log-decay difference, one
@@ -38,6 +43,20 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)  # P
 STATE_DIMS = (8, 16, 64)  # N
+#: Calls of at most this many steps take the decode regime: timed in turns
+#: at Zamba2's decode shape, it was faster than the chunked kernel (bf16) up
+#: to 16 steps and slower from 32, faster than the sequential one (fp32) up
+#: to 64 (chip_smoke.py's step sweep, PERF.md §6).
+DECODE_MAX_STEPS = 16
+
+
+def regime(dtype, S) -> str:
+    """The kernel a call of ``ssd_kernel`` takes: ``"decode"`` (S <=
+    ``DECODE_MAX_STEPS``), else ``"chunked"`` (bf16) or ``"sequential"``
+    (fp32)."""
+    if S <= DECODE_MAX_STEPS:
+        return "decode"
+    return "chunked" if dtype == torch.bfloat16 else "sequential"
 
 
 # ---------------------------------------------------------------------------
@@ -125,10 +144,34 @@ def ssd_ref(x, dt, A_log, Bm, Cm, state=None):
 # ---------------------------------------------------------------------------
 
 
+def row_stride(t):
+    """Elements between consecutive (b, t) rows of ``t`` (B, S, ...) whose
+    trailing dims are contiguous, as the decode regime reads x, B and C; or
+    None where the rows have no one stride, overlap, or the pointer or the
+    stride in bytes is not a multiple of 16 (the kernel's vector loads)."""
+    B, S = t.shape[:2]
+    inner = 1
+    for size, stride in reversed(list(zip(t.shape[2:], t.stride()[2:]))):
+        if size != 1 and stride != inner:
+            return None
+        inner *= size
+    sb, ss = t.stride()[:2]
+    if S > 1:
+        rs = ss
+        if B > 1 and sb != S * ss:
+            return None
+    else:
+        rs = sb if B > 1 else inner
+    if rs < inner or t.data_ptr() % 16 or rs * t.element_size() % 16:
+        return None
+    return rs
+
+
 def ssd_kernel(x, dt, A_log, Bm, Cm, state=None, *, chunk: int = 64):
     """x: (B,S,H,P), Bm/Cm: (B,S,N) CUDA tensors of one dtype (float32 or
     bfloat16); dt: (B,S,H) and A_log: (H,), read as fp32; state: (B,H,P,N)
-    or None. Returns (y (B,S,H,P) fp32, final_state (B,H,P,N) fp32)."""
+    or None. Returns (y (B,S,H,P) fp32, final_state (B,H,P,N) fp32). The
+    shape picks the kernel (``regime``); a failed build or launch raises."""
     del chunk  # the bf16 kernel's chunk is its own tile of 64
     if not all(t.is_cuda for t in (x, dt, A_log, Bm, Cm)):
         raise ValueError("ssd: x, dt, A_log, Bm and Cm must be CUDA tensors")
@@ -146,20 +189,50 @@ def ssd_kernel(x, dt, A_log, Bm, Cm, state=None, *, chunk: int = 64):
                          f"{N} not in {STATE_DIMS}")
     if state is not None and (not state.is_cuda or state.shape != (B, H, P, N)):
         raise ValueError(f"ssd: state {tuple(state.shape)} on {state.device}")
-    # The bf16 kernel copies 16-byte pieces: contiguous and 16-byte aligned.
-    x, Bm, Cm = (t.contiguous() if t.data_ptr() % 16 == 0 and t.is_contiguous()
-                 else t.clone(memory_format=torch.contiguous_format)
-                 for t in (x, Bm, Cm))
+    return ssd_launch(regime(x.dtype, S), x, dt, A_log, Bm, Cm, state)
+
+
+def _copy(t):
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def ssd_launch(kind, x, dt, A_log, Bm, Cm, state=None):
+    """One launch of the regime ``kind`` (``regime``'s names; "chunked" and
+    "sequential" are one C entry, ``repro_ssd_fwd``, which picks by dtype)
+    on inputs ``ssd_kernel`` has checked. ``ssd_kernel`` passes its regime;
+    a timing or a test may name another at any S."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
     dt = dt.to(torch.float32).contiguous()
     A_log = A_log.to(torch.float32).contiguous()
     h0 = None if state is None else state.to(torch.float32).contiguous()
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     hf = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    if B * H:
-        lib = build.load()
-        build.check(lib.repro_ssd_fwd(
+    if not B * H:
+        return y, hf
+    lib = build.load()
+    h0_ptr = None if h0 is None else h0.data_ptr()
+    stream = build.stream_of(x)
+    if kind == "decode":
+        # x, B and C go by their row strides; an operand whose pointer or
+        # stride is off 16 bytes (no view the models make) is copied.
+        xs = row_stride(x)
+        if xs is None:
+            x, xs = _copy(x), H * P
+        bs, cs = row_stride(Bm), row_stride(Cm)
+        if bs is None or bs != cs:
+            Bm, Cm, bs = _copy(Bm), _copy(Cm), N
+        build.check(lib.repro_ssd_decode(
             x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), hf.data_ptr(), _DTYPES[x.dtype], B, S, H, P, N,
-            build.stream_of(x)), "ssd")
+            Cm.data_ptr(), h0_ptr, y.data_ptr(), hf.data_ptr(),
+            _DTYPES[x.dtype], B, S, H, P, N, xs, bs, stream), "ssd decode")
+        return y, hf
+    # The chunked kernel copies 16-byte pieces: contiguous and 16-byte
+    # aligned.
+    x, Bm, Cm = (t if t.data_ptr() % 16 == 0 and t.is_contiguous() else _copy(t)
+                 for t in (x, Bm, Cm))
+    build.check(lib.repro_ssd_fwd(
+        x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), h0_ptr, y.data_ptr(), hf.data_ptr(), _DTYPES[x.dtype],
+        B, S, H, P, N, stream), "ssd")
     return y, hf

@@ -15,7 +15,11 @@ rows by 4 value columns at hd 64; partial outputs meet by warp shuffles);
 the ``u`` bonus hoisted to one scalar per step; r, k, v and lw staged 32
 steps at a time in shared memory by ``cp.async``, double buffered, with
 ``exp(lw)`` taken once per element there. It takes any S; ``chunk`` is
-accepted and ignored, so the contract equals the Pallas kernel's.
+accepted and ignored, so the contract equals the Pallas kernel's. Calls of
+at most ``DECODE_MAX_STEPS`` steps (a serving decode step from the carried
+state) take the decode regime instead (``csrc/wkv6_decode.cu``): the state
+streamed once through registers, no staged chunk, one barrier a step
+(``regime`` names the kernel a call takes).
 
 ``wkv6_plain`` is ``repro/models/rwkv6.wkv6_chunked``: the numerically
 stable chunked form (every exponent is a non-positive log-decay difference),
@@ -45,6 +49,18 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
+#: Calls of at most this many steps take the decode regime: timed in turns
+#: with the sequential kernel at RWKV-6's decode shape, it was faster up to 4
+#: steps in both dtypes (fp32 up to 8) and slower from 16 (chip_smoke.py's
+#: step sweep, PERF.md §6).
+DECODE_MAX_STEPS = 4
+
+
+def regime(dtype, S) -> str:
+    """The kernel a call of ``wkv6_kernel`` takes: ``"decode"`` (S <=
+    ``DECODE_MAX_STEPS``) or ``"sequential"``, for either dtype."""
+    del dtype  # both regimes take fp32 and bf16 r/k/v
+    return "decode" if S <= DECODE_MAX_STEPS else "sequential"
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +156,8 @@ def _aligned(t):
 def wkv6_kernel(r, k, v, lw, u, state=None, *, chunk: int = 64):
     """r,k,v: (B,S,H,hd) CUDA tensors of one dtype (float32 or bfloat16);
     lw: (B,S,H,hd) and u: (H,hd), read as fp32; state: (B,H,hd,hd) or None.
-    Returns (out (B,S,H,hd) fp32, final_state (B,H,hd,hd) fp32)."""
+    Returns (out (B,S,H,hd) fp32, final_state (B,H,hd,hd) fp32). The shape
+    picks the kernel (``regime``); a failed build or launch raises."""
     del chunk  # the sequential kernel stages its own 32-step chunks
     if not all(t.is_cuda for t in (r, k, v, lw, u)):
         raise ValueError("wkv6: r, k, v, lw and u must be CUDA tensors")
@@ -156,18 +173,27 @@ def wkv6_kernel(r, k, v, lw, u, state=None, *, chunk: int = 64):
         raise ValueError(f"wkv6: head_dim {hd} not in {HEAD_DIMS}")
     if state is not None and (not state.is_cuda or state.shape != (B, H, hd, hd)):
         raise ValueError(f"wkv6: state {tuple(state.shape)} on {state.device}")
-    # The kernel moves 16 bytes at a time: copy a view that starts off a
+    return wkv6_launch(regime(r.dtype, S), r, k, v, lw, u, state)
+
+
+def wkv6_launch(kind, r, k, v, lw, u, state=None):
+    """One launch of the regime ``kind`` (``regime``'s names) on inputs
+    ``wkv6_kernel`` has checked. ``wkv6_kernel`` passes its regime; a timing
+    or a test may name the other at any S."""
+    B, S, H, hd = r.shape
+    # Both kernels move 16 bytes at a time: copy a view that starts off a
     # 16-byte boundary.
     r, k, v, lw = (_aligned(t) for t in (r, k, v, lw.to(torch.float32)))
     u = u.to(torch.float32).contiguous()
-    s0 = None if state is None else state.to(torch.float32).contiguous()
+    s0 = None if state is None else _aligned(state.to(torch.float32))
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     sf = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     if B * H:
         lib = build.load()
-        build.check(lib.repro_wkv6_fwd(
+        entry = lib.repro_wkv6_decode if kind == "decode" else lib.repro_wkv6_fwd
+        build.check(entry(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
             out.data_ptr(), sf.data_ptr(), _DTYPES[r.dtype], B, S, H, hd,
-            build.stream_of(r)), "wkv6")
+            build.stream_of(r)), f"wkv6 {kind}")
     return out, sf

@@ -93,10 +93,24 @@ WKV_CASES = chip_smoke.wkv6_cases() + [
     ("S 33 clip range", (1, 33, 2, 64, (-8.0, 3.0), f32, True, 16, True)),
     ("ragged S bf16", (1, 100, 3, 16, (-1.0, 0.5), bf16, True, 64, False)),
     ("S 1024 hd 32 bf16", (1, 1024, 2, 32, "init", bf16, False, 64, False)),
+    # The decode regime from no state, in both dtypes; the sequential
+    # kernel one step past the regime's last.
+    ("decode no state", (2, 1, 3, 64, (-1.0, 0.5), f32, False, 64, False)),
+    ("decode no state bf16", (2, 1, 3, 16, (-1.0, 0.5), bf16, False, 64, False)),
+    ("sequential past decode", (2, W.DECODE_MAX_STEPS + 1, 3, 64, (-8.0, 3.0), f32,
+                                True, 16, True)),
 ]
 SSD_CASES = chip_smoke.ssd_cases() + [
-    ("fp32 long", (2, 1024, 8, 64, 64, f32, True)),
-    ("ragged S", (1, 100, 2, 16, 8, f32, True)),
+    ("fp32 long", (2, 1024, 8, 64, 64, f32, True, False)),
+    ("ragged S", (1, 100, 2, 16, 8, f32, True, False)),
+    # The decode regime from no state, in both dtypes, on views and on
+    # contiguous tensors; one (b, h) at (16, 8): four threads of one CTA.
+    ("decode no state", (3, 1, 5, 64, 64, bf16, False, True)),
+    ("decode no state fp32", (2, 1, 3, 32, 16, f32, False, False)),
+    ("decode one (b, h)", (1, 1, 1, 16, 8, bf16, True, True)),
+    # The chunked and sequential kernels one step past the regime's last.
+    ("chunked past decode", (2, SD.DECODE_MAX_STEPS + 1, 3, 64, 64, bf16, True, True)),
+    ("sequential past decode", (2, SD.DECODE_MAX_STEPS + 1, 3, 32, 16, f32, True, False)),
 ]
 
 
@@ -379,6 +393,44 @@ def test_wkv6_kernel_matches_plain(gen, case):
 @pytest.mark.parametrize("case", SSD_CASES, ids=_ids(SSD_CASES))
 def test_ssd_kernel_matches_plain(gen, case):
     chip_smoke.ssd_case(SD, gen, case[1])
+
+
+@pytest.mark.parametrize("dtype", [bf16, f32])
+def test_ssd_decode_regime_reads_the_views_and_repeats_its_bits(gen, dtype):
+    """At S = 1 ``ssd_kernel`` takes the decode regime: on the views
+    ``block_apply`` passes (rows H·P + 2N elements apart, B·H leaving the
+    last CTA part-filled) it gives the bits the regime gives
+    on contiguous copies, and the same bits on a second run; the chunked or
+    sequential kernel agrees within ``_rec_tol``."""
+    args = chip_smoke.ssd_inputs(gen, 3, 1, 5, 64, 64, dtype, state=True, strided=True)
+    assert SD.row_stride(args[0]) == 5 * 64 + 128 and not args[0].is_contiguous()
+    y, hf = SD.ssd_kernel(*args)
+    y2, hf2 = SD.ssd_kernel(*args)
+    copies = [t.contiguous() for t in args[:5]] + [args[5]]
+    y3, hf3 = SD.ssd_launch("decode", *copies)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+    assert torch.equal(y, y3) and torch.equal(hf, hf3)
+    other = "chunked" if dtype == bf16 else "sequential"
+    yo, ho = SD.ssd_launch(other, *args)
+    torch.testing.assert_close(y, yo, **chip_smoke.rec_tol(dtype))
+    torch.testing.assert_close(hf, ho, **chip_smoke.rec_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [bf16, f32])
+@pytest.mark.parametrize("hd", W.HEAD_DIMS)
+def test_wkv6_decode_regime_repeats_its_bits(gen, dtype, hd):
+    """At S = 1 ``wkv6_kernel`` takes the decode regime: the same bits as
+    the regime's own launch and on a second run; the sequential kernel
+    agrees within ``_rec_tol``."""
+    args = chip_smoke.wkv6_inputs(gen, 3, 1, 5, hd, dtype, state=True)
+    out, sf = W.wkv6_kernel(*args)
+    out2, sf2 = W.wkv6_launch("decode", *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(sf, sf2)
+    oo, so = W.wkv6_launch("sequential", *args)
+    torch.testing.assert_close(out, oo, **chip_smoke.rec_tol(dtype))
+    torch.testing.assert_close(sf, so, **chip_smoke.rec_tol(dtype))
 
 
 def test_recurrence_kernels_refuse_unsupported_shapes(gen):
