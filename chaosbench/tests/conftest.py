@@ -1,0 +1,9 @@
+"""The chaosbench tests import the harness as ``chaosbench`` and the
+program from ``src``."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for path in (ROOT, ROOT / "src"):
+    if str(path) not in sys.path:
+        sys.path.insert(0, str(path))
