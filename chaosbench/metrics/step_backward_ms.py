@@ -1,0 +1,11 @@
+"""step_backward_ms (model step, ``models/model_api.py``): host ms per
+window step inside the program's ``repro_torch.step.backward`` span,
+``torch.autograd.grad`` as the host issues it (the plain backwards
+included)."""
+from chaosbench.program_spans import CALLS, per_step_ms, spans  # noqa: F401
+
+RANGES = spans.NAMES if spans else ()
+
+
+def read(run):
+    return per_step_ms(run, "repro_torch.step.backward")

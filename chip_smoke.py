@@ -230,6 +230,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+from repro_torch import spans  # noqa: E402  (torch and the standard library only)
+
 #: What the port must run without: JAX, the JAX package and networkx.
 BLOCKED = ("networkx", "jax", "repro")
 PEAK_BYTES_PER_S = 3.35e12
@@ -1363,7 +1365,13 @@ def main_path(ops, name):
     torch.cuda.empty_cache()
     peak_train = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ev_out = trainer.scale_out()
+    spans.drain()
+    spans.enable()
+    try:
+        ev_out = trainer.scale_out()
+    finally:
+        spans.disable()
+    phases = [r for r in spans.drain() if r.name.startswith("repro_torch.scale_out")]
     peak_scale_out = torch.cuda.max_memory_allocated()
     unchanged = all(torch.equal(_bytes(b.to(leaf.device)), _bytes(leaf))
                     for b, leaf in zip(before, T.leaves(trainer.state)))
@@ -1391,9 +1399,9 @@ def main_path(ops, name):
                                       and leaf.numel()])
     log(f"{name}: the many-leaf encode of the full state is bit-identical to "
         f"the per-leaf plain encode")
-    breakdown = scale_out_breakdown(trainer, codec_module)
-    log(f"{name} scale-out phases on the trainer's state, each closed by a "
-        f"sync: {json.dumps(breakdown)} (the trainer's own scale-out "
+    breakdown = scale_out_breakdown(phases, trainer, codec_module)
+    log(f"{name} scale-out phases from the trainer's own spans, host ms, no "
+        f"sync of their own: {json.dumps(breakdown)} (the trainer's scale-out "
         f"{ev_out.wall_s * 1e3:.1f} ms); the decoded state bit-identical to "
         f"the per-leaf plain decode")
     codec = ev_out.plan_summary["codec"]
@@ -1424,37 +1432,26 @@ def main_path(ops, name):
         f"device memory {peak / 1e9:.1f} GB (scale-out "
         f"{peak_scale_out / 1e9:.1f} GB)")
     log(json.dumps({"main_path": summary}))
-    profile_step(trainer, loader, ops, batch_of)
+    profile_step(trainer, loader, batch_of)
     return trainer, launches
 
 
-def scale_out_breakdown(trainer, codec):
-    """The phases of one scale-out, run as ``ElasticTrainer.scale_out``
-    runs them on the trainer's state, each timed on the host clock and
-    closed by a sync: ``plan_replication``, ``encode_state``,
-    ``decode_state``, ``roundtrip_max_error_ok``. Fails unless the check
-    passes and every decoded int8 leaf equals its per-leaf plain decode."""
+def scale_out_breakdown(records, trainer, codec):
+    """The phases of one scale-out from the trainer's own spans
+    (``records``: its ``repro_torch.scale_out`` records), host ms by phase
+    (``plan``, ``encode``, ``decode``, ``check``, ``layout``) and in all
+    (``scale_out``). The spans make no sync of their own, so a phase's
+    device work lands in the next phase that waits for it (the check's
+    first sync). Fails unless the int8 encode and decode of the trainer's
+    state, run again, decode every int8 leaf bit-identical to its per-leaf
+    plain decode."""
     from repro_torch import tree as T
     from repro_torch.core import replication as rep
 
-    state = trainer.state
-    ms = {}
-
-    def timed(key, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        ms[key] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    timed("plan_replication", lambda: rep.plan_replication(
-        state, trainer.replication_neighbors()))
-    enc, manifest, _ = timed("encode_state", lambda: rep.encode_state(state, "int8"))
-    dec = timed("decode_state", lambda: rep.decode_state(enc, manifest))
-    if not timed("roundtrip_max_error_ok",
-                 lambda: rep.roundtrip_max_error_ok(state, dec, enc)):
-        raise AssertionError("scale-out breakdown: round-trip check failed")
+    ms = {r.name.removeprefix("repro_torch.scale_out").lstrip(".") or "scale_out":
+          r.seconds * 1e3 for r in records}
+    enc, manifest, _ = rep.encode_state(trainer.state, "int8")
+    dec = rep.decode_state(enc, manifest)
     for e, d in zip(enc, T.leaves(dec)):
         if e.kind == "int8" and not torch.equal(
                 d.reshape(-1), codec.shard_decode_plain(e.codes, e.scales, d.numel())):
@@ -2694,7 +2691,7 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
         torch.argmax(logits[:, -1:], dim=-1)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    rows, _ = device_times(prof.profiler.kineto_results.events(), ())
+    rows, _ = device_times(prof.profiler.kineto_results.events(), spans.NAMES)
     busy = sum(r[0] for r in rows)
     summary["profiled_decode"] = {
         "wall_ms": prof_ms, "device_busy_ms": busy,
@@ -2766,12 +2763,13 @@ def serve_path(ops, name, cfg, B, P, n_tokens):
     return launches
 
 
-def profile_step(trainer, loader, ops, batch_of):
+def profile_step(trainer, loader, batch_of):
     """Where one steady step's device time goes: kernels by device time
     (torch.profiler), and the device's busy share of the step's wall time;
-    the device time inside each plain backward (a ``record_function`` range
-    in ``kernels.ops``). ``batch_of`` makes the step's batch of the loader's
-    tokens. Runs after the launch counters were read."""
+    the device time inside each of the program's ranges (``spans.NAMES``:
+    the step's phases, the plain backwards). ``batch_of`` makes the step's
+    batch of the loader's tokens. Runs after the launch counters were
+    read."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = batch_of(np.concatenate([loader.next_batch(i)
@@ -2782,8 +2780,7 @@ def profile_step(trainer, loader, ops, batch_of):
         trainer.step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, ranges = device_times(prof.profiler.kineto_results.events(),
-                                ops.BACKWARD_RANGES)
+    rows, ranges = device_times(prof.profiler.kineto_results.events(), spans.NAMES)
     busy_ms = sum(r[0] for r in rows)
     steady = trainer.metrics_snapshot()["step_times"][len(trainer.active)][1:-1]
     step_ms = float(np.median(steady)) * 1e3
@@ -2928,7 +2925,7 @@ def device_ms(fn, name, tries=3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        rows, _ = device_times(prof.profiler.kineto_results.events(), ())
+        rows, _ = device_times(prof.profiler.kineto_results.events(), spans.NAMES)
         hits = [ms for ms, _, key in rows if name in key]
         if hits:
             return sum(hits)

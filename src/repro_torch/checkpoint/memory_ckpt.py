@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.replication import (
     StateManifest,
     assemble_shards,
@@ -64,24 +65,33 @@ class MemoryReplicaStore:
     def push(self, owner: int, step: int, tree,
              neighbors: Dict[int, NeighborLink]) -> ReplicaMeta:
         """Shard the state and place shards on neighbors (Alg 1/2 balanced).
-        With redundancy r > 1, each shard goes to r distinct holders."""
-        for key in [k for k in self._shards if k[0] == owner]:
-            del self._shards[key]
-        buf, manifest = flatten_state(tree)
-        asg = binary_search_assignment(manifest.tensor_sizes, neighbors)
-        ranges = make_shard_ranges(manifest.total_bytes, asg.shard_size)
-        holders: Dict[int, List[int]] = {u: [] for u in neighbors}
-        order = sorted(neighbors)
-        for u, ks in asg.shards_per_neighbor.items():
-            ks = [k for k in ks if k < len(ranges)]
-            holder_ring = [u] + [v for v in order if v != u]
-            for r in range(self.redundancy):
-                h = holder_ring[r % len(holder_ring)]
-                shards = extract_shards(buf, [ranges[k] for k in ks])
-                key = (owner, h)
-                self._shards.setdefault(key, {}).update(shards)
-                holders.setdefault(h, []).extend(ks)
-        del buf
+        With redundancy r > 1, each shard goes to r distinct holders.
+
+        The push runs in the span ``repro_torch.push`` (holders, shards,
+        bytes), its phases in ``.flatten``, ``.assign`` and ``.cut``, which
+        count the tensor copies they make (``repro_torch.spans``)."""
+        with spans.span("repro_torch.push", holders=len(neighbors)) as sp:
+            for key in [k for k in self._shards if k[0] == owner]:
+                del self._shards[key]
+            with spans.span("repro_torch.push.flatten"):
+                buf, manifest = flatten_state(tree)
+            with spans.span("repro_torch.push.assign"):
+                asg = binary_search_assignment(manifest.tensor_sizes, neighbors)
+            ranges = make_shard_ranges(manifest.total_bytes, asg.shard_size)
+            holders: Dict[int, List[int]] = {u: [] for u in neighbors}
+            order = sorted(neighbors)
+            with spans.span("repro_torch.push.cut"):
+                for u, ks in asg.shards_per_neighbor.items():
+                    ks = [k for k in ks if k < len(ranges)]
+                    holder_ring = [u] + [v for v in order if v != u]
+                    for r in range(self.redundancy):
+                        h = holder_ring[r % len(holder_ring)]
+                        shards = extract_shards(buf, [ranges[k] for k in ks])
+                        key = (owner, h)
+                        self._shards.setdefault(key, {}).update(shards)
+                        holders.setdefault(h, []).extend(ks)
+            del buf
+            sp.set(shards=len(ranges), bytes=manifest.total_bytes)
         meta = ReplicaMeta(step, manifest, ranges, holders)
         self._meta[owner] = meta
         return meta

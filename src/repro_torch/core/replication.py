@@ -18,6 +18,12 @@ each per state). The JAX package's
 ``verify_kernel`` cross-check against the reference on every encode has no
 counterpart here: the kernels are held to their plain versions by the tests
 and by ``chip_smoke.py``, never on the main path.
+
+Counters of the innermost open span (``repro_torch.spans``): ``copies``
+(the flatten's one concatenation, each shard cut out), ``shards`` (a
+plan's), ``leaves``, ``payload_bytes`` and ``wire_bytes`` (an encode's or
+a decode's), and ``syncs`` (each check of the round trip that waits for
+the device).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch import tree as T
 from repro_torch.core import codec as wire_codec
 from repro_torch.core.plans import plan_assignment
@@ -82,6 +89,7 @@ def flatten_state(tree) -> Tuple[torch.Tensor, StateManifest]:
     + manifest."""
     manifest = build_manifest(tree)
     buf = torch.cat([_bytes_of(leaf) for leaf in T.leaves(tree)])
+    spans.count("copies")
     return buf, manifest
 
 
@@ -116,6 +124,7 @@ def make_shard_ranges(total_bytes: int, shard_size: int) -> List[ShardRange]:
 
 def extract_shards(buf: torch.Tensor,
                    ranges: Sequence[ShardRange]) -> Dict[int, torch.Tensor]:
+    spans.count("copies", len(ranges))
     return {r.index: buf[r.start: r.end].clone() for r in ranges}
 
 
@@ -186,6 +195,9 @@ def encode_state(tree, codec: str = wire_codec.CODEC_INT8):
             wire = entry.nbytes
             out.append(EncodedLeaf("raw", entry.nbytes, wire, raw=leaf.clone()))
         total_wire += wire
+    spans.count("leaves", len(out))
+    spans.count("payload_bytes", manifest.total_bytes)
+    spans.count("wire_bytes", total_wire)
     return out, manifest, total_wire
 
 
@@ -206,6 +218,10 @@ def decode_state(leaves: Sequence[EncodedLeaf], manifest: StateManifest):
             continue
         shape, dtype = e.meta
         arrs.append(next(decoded).reshape(shape).to(dtype))
+    if spans.on():
+        spans.count("leaves", len(arrs))
+        spans.count("payload_bytes", manifest.total_bytes)
+        spans.count("wire_bytes", sum(e.wire_bytes for e in leaves))
     return T.unflatten(manifest.treedef, arrs)
 
 
@@ -226,12 +242,14 @@ def roundtrip_max_error_ok(tree, decoded_tree,
     :data:`ROUNDTRIP_SLACK`. Runs on the leaves' device."""
     for o, d, e in zip(T.leaves(tree), T.leaves(decoded_tree), leaves):
         if e.kind == "raw":
+            spans.count("syncs")
             if not torch.equal(o, d):
                 return False
             continue
         err = torch.abs(o.to(torch.float32) - d.to(torch.float32)).reshape(-1)
         err = F.pad(err, (0, (-err.numel()) % Q_BLOCK)).reshape(-1, Q_BLOCK)
         bound = e.scales[:, None] / 2.0
+        spans.count("syncs")
         if not bool(torch.all(err <= bound * (1.0 + ROUNDTRIP_SLACK))):
             return False
     return True
@@ -255,6 +273,7 @@ def plan_replication(tree, neighbors: Dict[int, NeighborLink]) -> ReplicationExe
     — synchronous DP, the paper's setting)."""
     buf_manifest = build_manifest(tree)
     asg = plan_assignment(buf_manifest.tensor_sizes, neighbors)
+    spans.count("shards", asg.n_shards)
     ranges = make_shard_ranges(buf_manifest.total_bytes, asg.shard_size)
     per_source = {
         u: sum(ranges[k].nbytes for k in ks if k < len(ranges))

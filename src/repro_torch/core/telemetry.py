@@ -30,7 +30,8 @@ digests, Chrome traces, markdown and exposition in both packages.
 ``collect_network``, ``collect_monitor``, ``collect_control`` and
 ``collect_backend`` scrape the simulator's network, monitor, control plane
 and ``SimBackend``; ``collect_trainer_backend`` is the trainer's
-counterpart.
+counterpart. ``collect_spans``, which the JAX module has not, exposes the
+port's live spans (``repro_torch.spans`` records, on the wall clock).
 """
 from __future__ import annotations
 
@@ -767,6 +768,8 @@ TTR_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 5.0, 10.0, 20.0,
 DETECTION_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0,
                      32.0, 64.0)
 STEP_TIME_BUCKETS = (0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0)
+SPAN_BUCKETS = (0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1.0,
+                3.0, 10.0)
 
 
 def _fmt(v: float) -> str:
@@ -1115,6 +1118,20 @@ def collect_trainer_backend(reg: MetricsRegistry, backend, ledger, *,
         1.0 if backend.degraded else 0.0)
     if report is not None:
         collect_goodput(reg, report)
+    return reg
+
+
+def collect_spans(reg: MetricsRegistry, records) -> MetricsRegistry:
+    """The port's spans (``repro_torch.spans.drain()``): a
+    ``chaos_span_seconds`` histogram by span name, and for each counter key
+    a ``chaos_span_<key>_total`` counter by span name."""
+    hist = reg.histogram("chaos_span_seconds", "Wall time of the program's spans",
+                         labels=("span",), buckets=SPAN_BUCKETS)
+    for r in records:
+        hist.observe(r.seconds, span=r.name)
+        for key, n in sorted(r.counters.items()):
+            reg.counter(f"chaos_span_{key}_total", f"Counter {key} of the program's spans",
+                        labels=("span",)).inc(n, span=r.name)
     return reg
 
 

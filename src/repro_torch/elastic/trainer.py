@@ -54,6 +54,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch import tree as T
 from repro_torch.core import codec as wire_codec
 from repro_torch.core.codec import MBPS
@@ -123,6 +124,9 @@ class ElasticTrainer:
         self._tp = 1
         self._microbatch = 1
         self.step_count = 0
+        # whether membership changed since the last step (the step span's
+        # ``after_change``)
+        self._membership_changed = False
         self.events: List[ScaleEvent] = []
         self._step_times: Dict[int, list] = {}
         self.state = None
@@ -283,24 +287,36 @@ class ElasticTrainer:
         """batch arrays lead with global_batch (= per_device × n_active):
         the tokens and a vlm's patches or an encdec model's frames. Every array goes
         to the model's device and the whole dict to the step, as the JAX
-        trainer puts the whole batch on its mesh."""
+        trainer puts the whole batch on its mesh.
+
+        The step runs in the span ``repro_torch.step`` (members, rows, and
+        ``after_change``: whether membership changed since the last step),
+        the reads of its metrics, each a copy to the host that waits for the
+        device, in ``repro_torch.step.read`` (``repro_torch.spans``)."""
         n = len(self.active)
-        moved = {}
-        for key, x in batch.items():
-            if not isinstance(x, torch.Tensor):
-                x = torch.from_numpy(np.asarray(x))
-            if x.shape[0] != self.global_batch:
-                raise ValueError(f"batch[{key!r}] of {x.shape[0]} rows; the "
-                                 f"global batch is {self.global_batch}")
-            moved[key] = x.to(self.model.device, non_blocking=True)
-        if self._step_fn is None:
-            self._step_fn = self.model.make_train_step()
-        t0 = time.perf_counter()
-        self.state, metrics = self._step_fn(self.state, moved)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        dt = time.perf_counter() - t0
+        after_change, self._membership_changed = self._membership_changed, False
+        spans.set_step(self.step_count)
+        with spans.span("repro_torch.step", members=n, rows=self.global_batch,
+                        after_change=after_change):
+            moved = {}
+            for key, x in batch.items():
+                if not isinstance(x, torch.Tensor):
+                    x = torch.from_numpy(np.asarray(x))
+                if x.shape[0] != self.global_batch:
+                    raise ValueError(f"batch[{key!r}] of {x.shape[0]} rows; the "
+                                     f"global batch is {self.global_batch}")
+                moved[key] = x.to(self.model.device, non_blocking=True)
+            if self._step_fn is None:
+                self._step_fn = self.model.make_train_step()
+            t0 = time.perf_counter()
+            self.state, metrics = self._step_fn(self.state, moved)
+            with spans.span("repro_torch.step.read") as sp:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                sp.count("reads", len(metrics))
+            dt = time.perf_counter() - t0
         self._step_times.setdefault(n, []).append(dt)
         self.step_count += 1
+        spans.set_step(self.step_count)
         return metrics
 
     # -- elasticity -----------------------------------------------------------------
@@ -312,7 +328,11 @@ class ElasticTrainer:
         Under a non-``none`` codec (standing policy or per-call override)
         the fp32 state is int8-encoded and decoded through the shard-codec
         kernels to account wire bytes and check the ``scale/2`` round-trip
-        bound; the state the trainer keeps stays exact."""
+        bound; the state the trainer keeps stays exact.
+
+        The join runs in the span ``repro_torch.scale_out`` (members after,
+        state bytes), its phases in ``.plan``, ``.encode``, ``.decode``,
+        ``.check`` and ``.layout`` (``repro_torch.spans``)."""
         eff_codec = self.codec if codec is None else wire_codec.validate_policy(codec)
         candidates = [d for d in self.pool if d not in self.active]
         if device is None:
@@ -320,30 +340,39 @@ class ElasticTrainer:
                 raise RuntimeError("device pool exhausted")
             device = candidates[0]
         t0 = time.perf_counter()
-        neighbors = self.replication_neighbors()
-        plan = plan_replication(self.state, neighbors)
-        codec_summary = None
-        if eff_codec != wire_codec.CODEC_NONE:
-            enc, manifest, wire = encode_state(self.state, eff_codec)
-            decoded = decode_state(enc, manifest)
-            if not roundtrip_max_error_ok(self.state, decoded, enc):
-                raise RuntimeError(
-                    "shard codec round-trip exceeded the scale/2 error bound")
-            codec_summary = {
-                "codec": eff_codec,
-                "payload_bytes": int(manifest.total_bytes),
-                "wire_bytes": int(wire),
-                "wire_reduction": (float(manifest.total_bytes) / wire
-                                   if wire else 1.0),
-            }
-            del enc, decoded
-        # A membership change resets the layout to the replicate-only
-        # baseline; a reshard policy re-applies tp via apply_reshard.
-        self._tp = 1
-        self._microbatch = 1
-        self.active = self.active + [device]
-        self._set_layout()
-        self._sync()
+        with spans.span("repro_torch.scale_out") as sp:
+            neighbors = self.replication_neighbors()
+            with spans.span("repro_torch.scale_out.plan"):
+                plan = plan_replication(self.state, neighbors)
+            codec_summary = None
+            if eff_codec != wire_codec.CODEC_NONE:
+                with spans.span("repro_torch.scale_out.encode"):
+                    enc, manifest, wire = encode_state(self.state, eff_codec)
+                with spans.span("repro_torch.scale_out.decode"):
+                    decoded = decode_state(enc, manifest)
+                with spans.span("repro_torch.scale_out.check"):
+                    ok = roundtrip_max_error_ok(self.state, decoded, enc)
+                if not ok:
+                    raise RuntimeError(
+                        "shard codec round-trip exceeded the scale/2 error bound")
+                codec_summary = {
+                    "codec": eff_codec,
+                    "payload_bytes": int(manifest.total_bytes),
+                    "wire_bytes": int(wire),
+                    "wire_reduction": (float(manifest.total_bytes) / wire
+                                       if wire else 1.0),
+                }
+                del enc, decoded
+            # A membership change resets the layout to the replicate-only
+            # baseline; a reshard policy re-applies tp via apply_reshard.
+            self._tp = 1
+            self._microbatch = 1
+            self.active = self.active + [device]
+            self._membership_changed = True
+            with spans.span("repro_torch.scale_out.layout"):
+                self._set_layout()
+                self._sync()
+            sp.set(members=len(self.active), state_bytes=plan.manifest.total_bytes)
         wall = time.perf_counter() - t0
         if self.on_reshard:
             self.on_reshard(self.device_ids())
@@ -370,6 +399,7 @@ class ElasticTrainer:
         self._tp = 1
         self._microbatch = 1
         self.active = [d for d in self.active if d != device]
+        self._membership_changed = True
         self._set_layout()
         self._sync()
         wall = time.perf_counter() - t0

@@ -14,8 +14,9 @@ Autodiff: ``flash_attention``, ``wkv6`` and ``ssd`` are
 differentiates the plain version, as the JAX package's ``_fa_bwd``,
 ``_wkv6_bwd`` and ``_ssd_bwd`` differentiate their XLA paths (the scans at
 ``chunk=min(chunk, 32)``). The JAX package has no backward kernel, so the
-port has none either. Each backward runs inside a ``record_function`` range
-(``<name>_plain_backward``) so that a profile can attribute its device time.
+port has none either. Each backward runs inside a span
+(``repro_torch.spans``) named ``<name>_plain_backward``: under a profiler a
+``record_function`` range, so that a profile can attribute its device time.
 
 On the meta device (the dry run's trace) ``flash_attention``, ``wkv6`` and
 ``ssd`` return empty outputs of the kernel's shapes and report the
@@ -28,8 +29,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import spans
 from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import shard_codec as _codec
@@ -71,8 +72,7 @@ def _on_card(t: torch.Tensor, what: str) -> bool:
 def _plain_vjp(fn, args, n_diff, grads, name, static=()):
     """Gradients of the plain version ``fn(*args)`` (a tuple of outputs)
     with respect to its first ``n_diff`` args, against the output grads
-    ``grads`` (None where an output was unused), inside the profiler range
-    ``name``. Args past ``n_diff`` are passed as they are. On the meta
+    ``grads`` (None where an output was unused), inside the span ``name``. Args past ``n_diff`` are passed as they are. On the meta
     device under a trace, the trace may stand in its record of an earlier
     call with the same shapes and ``static`` arguments (``trace_sink.vjp``)."""
     if trace_sink is not None and args[0].is_meta:
@@ -84,7 +84,7 @@ def _plain_vjp(fn, args, n_diff, grads, name, static=()):
 
 def _run_vjp(fn, args, n_diff, grads, name):
     live = [a.detach().requires_grad_(True) for a in args[:n_diff]]
-    with torch.enable_grad(), record_function(name):
+    with torch.enable_grad(), spans.span(name):
         outs = fn(*live, *args[n_diff:])
         used = [(o, g) for o, g in zip(outs, grads) if g is not None]
         if not used:

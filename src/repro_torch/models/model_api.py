@@ -53,6 +53,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
@@ -125,7 +126,9 @@ class Model:
     def make_train_step(self):
         """One synchronous step on the global batch. The state's params and
         optimizer moments are updated in place, leaf by leaf (the module's
-        docstring), and the same dict returned; metrics are 0-d tensors."""
+        docstring), and the same dict returned; metrics are 0-d tensors.
+        The forward, the backward and the update each run in a span
+        (``repro_torch.spans``), the update counting the leaves it updates."""
         cfg = self.cfg
         opt = make_optimizer(cfg)
 
@@ -133,17 +136,21 @@ class Model:
             params = state["params"]
             paths, leaves = zip(*T.flatten_with_paths(params))
             live = [p.detach().requires_grad_(True) for p in leaves]
-            tot, metrics = self.loss_fn(T.unflatten(paths, live), batch)
-            grads = list(torch.autograd.grad(tot, live))
+            with spans.span("repro_torch.step.forward"):
+                tot, metrics = self.loss_fn(T.unflatten(paths, live), batch)
+            with spans.span("repro_torch.step.backward"):
+                grads = list(torch.autograd.grad(tot, live))
             del live
-            gnorm = global_norm(T.unflatten(paths, grads))
-            scale = clip_scale(gnorm, cfg.grad_clip)
-            update = opt.start(state["opt"])
-            with torch.no_grad():
-                for i, (path, p) in enumerate(zip(paths, leaves)):
-                    g, grads[i] = grads[i], None
-                    p.sub_(update(path, p, clip_leaf(g, scale)))
-                    del g
+            with spans.span("repro_torch.step.update") as sp:
+                gnorm = global_norm(T.unflatten(paths, grads))
+                scale = clip_scale(gnorm, cfg.grad_clip)
+                update = opt.start(state["opt"])
+                with torch.no_grad():
+                    for i, (path, p) in enumerate(zip(paths, leaves)):
+                        g, grads[i] = grads[i], None
+                        p.sub_(update(path, p, clip_leaf(g, scale)))
+                        del g
+                sp.count("leaves", len(paths))
             metrics = dict({k: v.detach() for k, v in metrics.items()},
                            grad_norm=gnorm, total_loss=tot.detach())
             return state, metrics
