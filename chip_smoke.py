@@ -24,7 +24,11 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    dim 112 in training, the serving prefill and decode; Whisper's encoder
    (full over 1,500 frames), decoder and cross-attention (Sq != Skv) in
    training, its serving prefill and decode; fp32 and bf16 cases at head
-   dim 112) and over the JAX kernel sweeps; the many-leaf encode and decode (one
+   dim 112) and over the JAX kernel sweeps; the attention backward kernels'
+   dq, dk and dv within 1e-2 of the norm of fp32 autograd of the plain
+   version, at the benchmark's GPT-2 layer (12, 1024, 12, 64, causal),
+   Whisper's encoder, decoder and cross-attention and every main path's
+   bf16 shape at a head dim they take; the many-leaf encode and decode (one
    launch per state) bit for bit against the per-leaf plain versions, the
    decode over all of GPT-2's fp32 leaf shapes and a ragged set; adamw8bit's
    block quantizer on TinyLlama's embedding bit for bit as on the CPU;
@@ -141,7 +145,10 @@ Phases, each of which fails hard (any mismatch exits non-zero):
    serving prefill into the cache of 1152) and Whisper's encoder, decoder
    and cross-attention shapes beside SDPA with the mask as an explicit
    boolean mask (a ``kernel_train_shape`` line), and Whisper's decode
-   cross-attention over its 1,500 frames;
+   cross-attention over its 1,500 frames; the attention backward kernels at
+   GPT-2's benchmark layer (the ``kernels`` line's ``flash_attention_bwd``
+   row) and Whisper's three shapes beside the plain backward and SDPA's
+   backward (a ``kernel_train_shape`` line each);
 6. the simulator substrate (``repro_torch.core``: topology on a stdlib
    graph, the event simulator, the cluster monitor, the negotiation
    protocols, the baselines), host Python that launches no kernel:
@@ -1015,6 +1022,105 @@ def check_attention(fa, gen):
     return main_err
 
 
+#: The backward's gradients against fp32 autograd of the plain version, as
+#: the error's norm over the gradient's: bf16 operands and outputs, fp32
+#: sums (measured 0.0023-0.0025 at GPT-2's and Whisper's shapes).
+BWD_REL_TOL = 1e-2
+#: The benchmark's GPT-2 layer: 3 members of batch 4, 1,024 tokens.
+GPT2_BWD_CASE = (12, SEQ, SEQ, 12, 12, 64, "causal", 0, 0, 0.0, torch.bfloat16)
+
+
+def attention_bwd_cases(paths=True):
+    """``(label, case, rope_theta)`` of the backward: the benchmark's GPT-2
+    layer, Whisper's encoder, decoder and cross-attention at the serving
+    batch of 8, and (``paths``) each main path's bf16 training shape whose
+    head dim the backward kernels take (``backward_regime``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = path_config("whisper-small")
+    cases = [("gpt2 benchmark", GPT2_BWD_CASE, 0.0)]
+    cases += [(f"whisper-small B={SERVE_BATCH} {part}", case, 0.0) for part, case
+              in whisper_attention_shapes(cfg, SERVE_BATCH, path_seq("whisper-small"))]
+    if not paths:
+        return cases
+    for path, (B, S, H, K, hd, kind, prefix, softcap, theta) in main_shapes()[
+            "flash_attention"]:
+        if fa.backward_regime(torch.bfloat16, hd) == "wgmma":
+            cases.append((f"{path} B={B}", (B, S, S, H, K, hd, kind, 0, prefix, softcap,
+                                            torch.bfloat16), theta))
+    return cases
+
+
+def attention_bwd_inputs(fa, gen, case, theta=0.0):
+    """q, k, v (``attention_inputs``), the gradient of the output dO, the
+    forward's output and its rows' log-sum-exp, as a training call keeps
+    them for the backward."""
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+    q, k, v = attention_inputs(gen, case, theta)
+    do = torch.randn((B, Sq, H, d), generator=gen, device="cuda").to(dt)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    with fa.writing_lse(lse):
+        o = fa.flash_attention_kernel(q, k, v, scale=d ** -0.5, softcap=softcap,
+                                      kind=kind, window=window, prefix_len=prefix)
+    return q, k, v, do, o, lse
+
+
+def attention_plain_grads(fa, q, k, v, do, case, dtype=None):
+    """dq, dk, dv of ``attention_plain`` by autograd, on q, k and v cast to
+    ``dtype`` (as they are when None: the plain backward the program runs
+    for other calls)."""
+    from repro_torch.models.layers import MaskSpec
+
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+    live = [t.detach().to(dtype or t.dtype).requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        out = fa.attention_plain(*live, MaskSpec(kind, window=window, prefix_len=prefix),
+                                 scale=d ** -0.5, softcap=softcap)
+        return torch.autograd.grad(out, live, do.to(out.dtype))
+
+
+def attention_bwd_case(fa, gen, case, theta=0.0):
+    """The backward kernels' dq, dk and dv against fp32 autograd of
+    ``attention_plain`` on the same bf16 values, each within
+    ``BWD_REL_TOL`` of the gradient's norm. Returns (max |kernel - plain|,
+    the largest relative error)."""
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+    q, k, v, do, o, lse = attention_bwd_inputs(fa, gen, case, theta)
+    got = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, scale=d ** -0.5,
+                                        softcap=softcap, kind=kind, window=window,
+                                        prefix_len=prefix)
+    want = attention_plain_grads(fa, q, k, v, do, case, torch.float32)
+    abs_err = rel_err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != dt or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"attention backward {case[:7]}: {name} "
+                                 f"{tuple(g.shape)} {g.dtype}, not finite or misshapen")
+        rel = float((g.float() - w).norm() / w.norm())
+        if not rel <= BWD_REL_TOL:
+            raise AssertionError(f"attention backward {case[:7]}: {name} off the fp32 "
+                                 f"autograd by {rel:.3e} of its norm (> {BWD_REL_TOL})")
+        abs_err = max(abs_err, float((g.float() - w).abs().max()))
+        rel_err = max(rel_err, rel)
+    return abs_err, rel_err
+
+
+def check_attention_bwd(fa, gen):
+    """Every case of ``attention_bwd_cases``; returns the largest
+    max |kernel - plain| over them."""
+    main_err = 0.0
+    for label, case, theta in attention_bwd_cases():
+        abs_err, rel_err = attention_bwd_case(fa, gen, case, theta)
+        main_err = max(main_err, abs_err)
+        B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+        extras = "".join(f", {name} {value}" for name, value in (
+            ("prefix", prefix), ("softcap", softcap), ("RoPE", theta)) if value)
+        log(f"attention backward {label} {case[:6]} bf16 {kind}{extras}: dq, dk, dv "
+            f"within {rel_err:.3e} of the fp32 autograd's norm (<= {BWD_REL_TOL}), "
+            f"max |kernel - plain| {abs_err:.3e}")
+        torch.cuda.empty_cache()
+    return main_err
+
+
 def wkv6_inputs(gen, B, S, H, hd, dtype, decay=(-8.0, 3.0), state=False):
     """r, k, v in ``dtype``; lw = -exp(uniform(decay)) clipped as
     ``rwkv6._decay`` clips (the default spans its whole clip range), or,
@@ -1257,12 +1363,15 @@ def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1,
                       serving=False):
     """The launches of a run of ``steps`` steps and ``scale_outs`` int8
     scale-outs, kernel by kernel: per step, each layer's kernel once in the
-    forward and once more in its remat recompute (the backwards
-    differentiate the plain versions and launch nothing); Zamba2's shared
-    attention block, applied outside the remat, once per application; in
-    each scale-out, the encode once for all fp32 leaves together and the
-    decode once for all of them. ``serving``: the steps are one request's
-    forwards (its prefill and decode steps), which run an encoder once."""
+    forward and once more in its remat recompute; each attention call's
+    backward once, where the backward kernels take the training path's bf16
+    at the config's head dim (the other backwards differentiate the plain
+    versions and launch nothing); Zamba2's shared attention block, applied
+    outside the remat, once per application; in each scale-out, the encode
+    once for all fp32 leaves together and the decode once for all of them.
+    ``serving``: the steps are one request's forwards (its prefill and
+    decode steps), which run an encoder once and no backward."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import zamba2
 
@@ -1270,8 +1379,10 @@ def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1,
     n = dict.fromkeys(ops.launches, 0)
     n["shard_encode"] = scale_outs if n_coded_leaves else 0
     n["shard_decode"] = scale_outs if n_coded_leaves else 0
+    calls = 0  # attention calls a step, each once: the backwards
     if cfg.family in ("dense", "vlm", "moe"):
         n["flash_attention"] = per_layer
+        calls = cfg.n_layers
     elif cfg.family == "encdec":
         # Each decoder layer's self- and cross-attention, each encoder
         # layer's attention; a served request runs the encoder once, in
@@ -1279,13 +1390,17 @@ def expected_launches(cfg, n_coded_leaves, steps=sum(STEPS), scale_outs=1,
         encodes = 1 if serving else steps
         n["flash_attention"] = 2 * per_layer + encodes * cfg.enc_layers * (
             2 if cfg.remat else 1)
+        calls = 2 * cfg.n_layers + cfg.enc_layers
     elif cfg.family == "ssm":
         n["wkv6"] = per_layer
     elif cfg.family == "hybrid":
         n["ssd"] = per_layer
         n["flash_attention"] = steps * zamba2.n_shared_apps(cfg)
+        calls = zamba2.n_shared_apps(cfg)
     else:
         raise ValueError(f"no main path for family {cfg.family!r}")
+    if not serving and fa.backward_regime(torch.bfloat16, cfg.head_dim) == "wgmma":
+        n["flash_attention_bwd"] = steps * calls
     return n
 
 
@@ -3060,6 +3175,53 @@ def time_train_attention(fa, MaskSpec, gen, name, cfg, B, Skv=None, Sq=None,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
 
 
+def time_attention_bwd(fa, gen, case):
+    """The backward kernels (``flash_attention_bwd_kernel``: prep, dK/dV,
+    dQ) at one shape of ``attention_bwd_cases``, beside the plain backward
+    they replace (autograd of ``attention_plain`` on the bf16 leaves,
+    recomputing its forward as ``kernels/ops.py`` does) and the library's:
+    the backward of ``scaled_dot_product_attention`` over a graph kept for
+    repeats, its gradients first checked within ``BWD_REL_TOL`` of the
+    plain version's in fp32. The bound counts ``cost.attention_bwd`` over
+    the pairs the mask admits."""
+    from repro_torch.kernels import cost
+
+    B, Sq, Skv, H, K, d, kind, window, prefix, softcap, dt = case
+    if window or prefix or softcap:
+        raise ValueError("time_attention_bwd: SDPA computes no window, prefix or softcap")
+    scale = d ** -0.5
+    q, k, v, do, o, lse = attention_bwd_inputs(fa, gen, case)
+
+    def kernel():
+        return fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, scale=scale, kind=kind)
+
+    def plain():
+        return attention_plain_grads(fa, q, k, v, do, case)
+
+    live = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    do_t = do.transpose(1, 2)
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *live, is_causal=kind == "causal", scale=scale, enable_gqa=H != K)
+
+    def library():
+        return torch.autograd.grad(out, live, do_t, retain_graph=True)
+
+    want = attention_plain_grads(fa, q, k, v, do, case, torch.float32)
+    for name, g, w in zip(("dq", "dk", "dv"), library(), want):
+        rel = float((g.transpose(1, 2).float() - w).norm() / w.norm())
+        if not rel <= BWD_REL_TOL:
+            raise AssertionError(f"SDPA's backward {case[:7]}: {name} off the fp32 "
+                                 f"autograd by {rel:.3e} of its norm")
+    del want
+    pairs = cost.admitted_pairs(kind, 0, 0, Sq, Skv)
+    flops, nbytes = cost.attention_bwd(B, Sq, Skv, H, K, d, pairs)
+    return dict(shape=[B, Sq, Skv, H, K, d], mask=kind, admitted_pairs_per_head=pairs,
+                ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3, 1),
+                library_ms=cuda_ms(library, 20),
+                bound=bound(nbytes, flops, PEAK_BF16_FLOPS))
+
+
 def time_wkv6(W, gen, shape):
     """At the RWKV-6 path's shape (global batch 8) and dtypes (fp32 r/k/v
     and decays)."""
@@ -3410,8 +3572,14 @@ def open_baseline(csrc):
     # The attention entry took n_split and a workspace from the decode regime
     # on; an earlier checkout's takes neither (18 arguments). ``takes_split``
     # is the one record of which, for ``baseline_attention``.
-    old.takes_split = "int n_split" in (pathlib.Path(csrc) / "flash_attention.cu").read_text()
+    # From the backward kernels on it also takes an lse pointer before the
+    # stream; ``takes_lse`` records which.
+    source = (pathlib.Path(csrc) / "flash_attention.cu").read_text()
+    old.takes_split = "int n_split" in source
+    old.takes_lse = "void* lse" in source
     sig = list(build.SIGNATURES["repro_flash_attention_fwd"])
+    if not old.takes_lse:
+        sig = sig[:-2] + sig[-1:]
     old.repro_flash_attention_fwd.argtypes = sig if old.takes_split else sig[:-3] + sig[-1:]
     old.repro_flash_attention_fwd.restype = ctypes.c_int
     log(f"baseline build from {csrc}: {time.perf_counter() - t0:.1f} s")
@@ -3441,7 +3609,8 @@ def baseline_attention(old, q, k, v, out, scale, softcap=0.0, kind="causal",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         1 if q.dtype == torch.bfloat16 else 0, B, Sq, Skv, H, K, hd, scale, softcap,
         {"causal": 0, "full": 1, "prefix": 2}[kind], window, prefix_len, q_offset,
-        *split, torch.cuda.current_stream().cuda_stream), "baseline attention")
+        *split, *([None] if old.takes_lse else []),
+        torch.cuda.current_stream().cuda_stream), "baseline attention")
 
 
 def _in_turns(name, base_fn, new_fn):
@@ -4470,6 +4639,7 @@ def main():
     errs = {"shard_encode": check_codec(codec, gen)}
     errs["shard_decode"] = errs["shard_encode"]
     errs["flash_attention"] = check_attention(fa, gen)
+    errs["flash_attention_bwd"] = check_attention_bwd(fa, gen)
     errs["wkv6"] = check_wkv6(W, gen)
     errs["ssd"] = check_ssd(SD, gen)
     check_q8(gen)
@@ -4559,6 +4729,15 @@ def main():
             log(json.dumps({"kernel_train_shape": "flash_attention", **t,
                             "bound_ms": bound_ms, "bound_by": bound_by}))
             torch.cuda.empty_cache()
+    for label, case, _ in attention_bwd_cases(paths=False):
+        t = time_attention_bwd(fa, gen, case)
+        if label == "gpt2 benchmark":
+            times["flash_attention_bwd"] = t
+        bound_ms, bound_by = t["bound"]
+        log(json.dumps({"kernel_train_shape": "flash_attention_bwd", "model": label,
+                        **{key: t[key] for key in t if key != "bound"},
+                        "bound_ms": bound_ms, "bound_by": bound_by}))
+        torch.cuda.empty_cache()
     shapes = main_shapes()
     times["wkv6"] = time_wkv6(W, gen, shapes["wkv6"][0][1])
     times["ssd"] = time_ssd(SD, gen, shapes["ssd"][0][1])
@@ -4607,6 +4786,8 @@ def main():
          "src/repro/kernels/wkv6.py:68"),
         ("ssd", "src/repro_torch/csrc/ssd.cu",
          "src/repro/kernels/ssd.py:66"),
+        ("flash_attention_bwd", "src/repro_torch/csrc/attention_bwd.cu",
+         "src/repro/kernels/ops.py:51"),
     ]
     kernels = []
     for name, source, replaces in rows:

@@ -45,6 +45,9 @@
 //   cp.async, not TMA: the same swizzled tiles without host-side tensor
 //   maps, zero-fill of ragged rows and of the padded head dims in the
 //   kernel, and a ring a later change can move to TMA unchanged.
+//   Given an lse pointer (a call that wants a gradient), it also writes each
+//   row's log-sum-exp, m + log(l), for the backward (attention_bwd.cuh);
+//   the output is the same bits either way.
 // * fp32 (the parity sweeps, held to 2e-5, which tensor cores cannot meet):
 //   plain FMA on the CUDA cores. A CTA of 256 threads owns 64 rows, four
 //   threads per row, each holding an interleaved quarter of q and of the
@@ -99,80 +102,13 @@ using namespace repro_fa;
 // bf16: Hopper (cp.async ring, wgmma).
 // ---------------------------------------------------------------------------
 
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving register reads or writes across the
-// asynchronous products.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D (64x64 fp32) (+)= A (64x16, K-major, shared) * B (16x64, K-major,
-// shared); scale_d = 0 starts from zero.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64x64 fp32) += A (64x16 bf16, registers) * B (16x64, MN-major, shared).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads)
 flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
-                             __nv_bfloat16* __restrict__ o, Params p) {
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, Params p) {
   static_assert(HD % 16 == 0, "a wgmma k-step is 16 columns of the head dim");
   constexpr int HDP = hd_padded<HD>();
   constexpr int kPanels = HDP / 64;
@@ -363,6 +299,15 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // Each row's log-sum-exp of its scores, for the backward (only when asked:
+  // serving and calls without a gradient pass null). m is in log2 units; a
+  // row that the mask leaves empty gets +inf, so that the backward's
+  // exp(score - lse) is 0 there, as the row's output is.
+  if (lse != nullptr && t4 == 0) {
+    float* lrow = lse + ((long long)b * p.H + h) * p.Sq;
+    if (r0 < p.Sq) lrow[r0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : pos_inf();
+    if (r1 < p.Sq) lrow[r1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : pos_inf();
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
   __nv_bfloat16* o0 = o + (((long long)b * p.Sq + r0) * p.H + h) * HD;
@@ -563,7 +508,7 @@ unsigned n_blocks(const Params& p) {
 }
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
                  const Params& p, cudaStream_t stream) {
   constexpr int HDP = hd_padded<HD>();
   // Q, the K and V rings, and the slack that aligns them to 1024 bytes.
@@ -575,7 +520,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return (int)e;
   flash_attention_wgmma_kernel<HD><<<n_blocks<kWgRows>(p), kWgThreads, kSmem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, p);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, p);
   return (int)cudaGetLastError();
 }
 
@@ -595,11 +540,11 @@ int launch_fma(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int HD>
-int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
            const Params& p, cudaStream_t stream) {
   switch (dtype) {
-    case 0: return launch_fma<HD>(q, k, v, o, p, stream);
-    case 1: return launch_wgmma<HD>(q, k, v, o, p, stream);
+    case 0: return lse ? (int)cudaErrorInvalidValue : launch_fma<HD>(q, k, v, o, p, stream);
+    case 1: return launch_wgmma<HD>(q, k, v, o, lse, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -631,26 +576,29 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 // of key tiles (1 <= n_split <= min(64, the admitted range's 64-key tiles),
 // or 1 where it has none); past n_split = 1 it needs `workspace`: B·K·n_split
 // ·Sq·(H/K)·(hd + 2) floats. Every other call takes n_split = 1 and no
-// workspace.
+// workspace. `lse` (or null): fp32 (B, H, Sq), each query row's log-sum-exp of
+// its scaled (and softcapped) scores, for the backward; bf16 only, and a call
+// that asks for it takes the wgmma kernel whatever its shape, with n_split 1.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int H, int K, int hd, float scale, float softcap,
     int kind, int window, int prefix_len, int q_offset, int n_split,
-    void* workspace, void* stream) {
+    void* workspace, void* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   const Params p{B, Sq, Skv, H, K, H / K, scale, softcap,
                  kind, window, prefix_len, q_offset};
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype != 1 || (long long)Sq * p.G > kDecRows) {
+  float* l = reinterpret_cast<float*>(lse);
+  if (dtype != 1 || (long long)Sq * p.G > kDecRows || l != nullptr) {
     if (n_split != 1) return (int)cudaErrorInvalidValue;
     switch (hd) {
-      case 16: return launch<16>(dtype, q, k, v, o, p, st);
-      case 32: return launch<32>(dtype, q, k, v, o, p, st);
-      case 64: return launch<64>(dtype, q, k, v, o, p, st);
-      case 112: return launch<112>(dtype, q, k, v, o, p, st);
-      case 128: return launch<128>(dtype, q, k, v, o, p, st);
-      case 256: return launch<256>(dtype, q, k, v, o, p, st);
+      case 16: return launch<16>(dtype, q, k, v, o, l, p, st);
+      case 32: return launch<32>(dtype, q, k, v, o, l, p, st);
+      case 64: return launch<64>(dtype, q, k, v, o, l, p, st);
+      case 112: return launch<112>(dtype, q, k, v, o, l, p, st);
+      case 128: return launch<128>(dtype, q, k, v, o, l, p, st);
+      case 256: return launch<256>(dtype, q, k, v, o, l, p, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -42,10 +42,14 @@ SIGNATURES = {
     # table, n_leaves, nb, stream.
     "repro_shard_decode_many": [_P, _I32, _I64, _P],
     # q, k, v, o; dtype, B, Sq, Skv, H, K, hd, scale, softcap, kind, window,
-    # prefix_len, q_offset, n_split; workspace (or null), stream.
+    # prefix_len, q_offset, n_split; workspace (or null), lse (or null),
+    # stream.
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                   _I32, _I32, _I32, _F32, _F32, _I32, _I32,
-                                  _I32, _I32, _I32, _P, _P],
+                                  _I32, _I32, _I32, _P, _P, _P],
+    # q, k, v, o, lse, dout, dq, dk, dv, delta; B, Sq, Skv, H, K, hd, scale,
+    # softcap, kind, window, prefix_len, q_offset; stream.
+    "repro_attention_bwd": [_P] * 10 + [_I32] * 6 + [_F32, _F32] + [_I32] * 4 + [_P],
     # r, k, v, lw, u, state (or null), out, final state; dtype, B, S, H, hd.
     "repro_wkv6_fwd": [_P] * 8 + [_I32] * 5 + [_P],
     # x, dt, A_log, Bm, Cm, state (or null), y, final state; dtype, B, S, H,

@@ -6,7 +6,8 @@ op, so that the plain versions' loops are never traced.
 
 Bytes count each input read once and each output written once. Attention
 counts the (query, key) pairs its mask admits (``admitted_pairs``), 4·hd
-operations a pair and head (QKᵀ and PV, a multiply-add each); WKV6 the
+operations a pair and head (QKᵀ and PV, a multiply-add each), its backward
+10·hd (the five products QKᵀ, PᵀdO, dO Vᵀ, dSᵀQ and dS K); WKV6 the
 recurrence's 5 fp32 operations per state element and step; SSD the
 chunked form's four products (2 operations a multiply-add) over its
 64-row chunks, or the recurrence's 5 per state element at one step.
@@ -28,6 +29,16 @@ def attention(B, Sq, Skv, H, K, hd, pairs, *, kv_rows=None, itemsize=2):
     kv_rows = Skv if kv_rows is None else kv_rows
     flops = 4 * B * H * hd * pairs
     nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * kv_rows * K * hd)
+    return flops, nbytes
+
+
+def attention_bwd(B, Sq, Skv, H, K, hd, pairs, *, itemsize=2):
+    """(operations, bytes) of attention's backward over ``pairs`` admitted
+    pairs per head: q, o and dO read and dq written (B·Sq·H·hd each), K and
+    V read and dK and dV written (B·Skv·K·hd each), and each query row's
+    log-sum-exp and D = rowsum(dO ∘ O) in fp32."""
+    flops = 10 * B * H * hd * pairs
+    nbytes = itemsize * (4 * B * Sq * H * hd + 4 * B * Skv * K * hd) + 4 * 2 * B * H * Sq
     return flops, nbytes
 
 

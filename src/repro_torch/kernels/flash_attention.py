@@ -15,13 +15,24 @@ head) holds the whole GQA group's rows, the admitted keys are cut into
 kernel merges the runs' fp32 partials in split order (``regime`` names the
 kernel a call takes).
 
+A call that wants a gradient (``writing_lse``) also writes each query row's
+log-sum-exp of its scaled (and softcapped) scores, fp32 (B, H, Sq), and takes
+the wgmma kernel whatever its shape: the decode regime writes none, and no
+training call is that small. The backward kernels
+(``csrc/attention_bwd.cuh``, ``flash_attention_bwd_kernel``) read it with
+the output to give dq, dk and dv of bf16 calls at the head dims of
+``BWD_HEAD_DIMS`` (``backward_regime``).
+
 ``attention_plain`` mirrors ``repro/kernels/ref.attention_ref``: dense
-softmax attention in fp32. It is the CPU path, the oracle on the card, and
-— under autograd — the backward of ``kernels.ops.flash_attention``.
+softmax attention in fp32. It is the CPU path and the oracle on the card,
+and — under autograd — the backward of ``kernels.ops.flash_attention`` for
+CPU tensors, fp32 card calls and head dim 256.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+import threading
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +41,9 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"causal": 0, "full": 1, "prefix": 2}
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+#: Head dims the backward kernels take: at 256, dK's and dV's accumulators
+#: alone would need 256 fp32 registers a thread, past the 255 there are.
+BWD_HEAD_DIMS = (16, 32, 64, 112, 128)
 NEG_INF = -2.0e38
 
 #: The decode regime (``csrc/flash_attention.cuh``): at most ``DECODE_ROWS``
@@ -60,6 +74,15 @@ def regime(dtype, Sq, H, K) -> str:
     return "decode" if Sq * (H // K) <= DECODE_ROWS else "wgmma"
 
 
+def backward_regime(dtype, hd) -> str:
+    """The backward a card call of ``kernels.ops.flash_attention`` takes:
+    ``"wgmma"`` (the backward kernels) for bf16 at a head dim of
+    ``BWD_HEAD_DIMS``, else ``"plain"`` (autograd of ``attention_plain``:
+    fp32 calls, held to the fp32 tolerance, and head dim 256). CPU calls
+    always take the plain backward."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in BWD_HEAD_DIMS else "plain"
+
+
 def admitted_keys(kind, window, prefix_len, Sq, Skv, q_offset=0):
     """The keys ``[lo, hi)`` that the mask can admit for queries at
     ``q_offset .. q_offset + Sq - 1``: the kernel's ``kv_range`` for one
@@ -73,6 +96,24 @@ def admitted_keys(kind, window, prefix_len, Sq, Skv, q_offset=0):
     hi = min(max(hi, 0), Skv)
     lo = max(0, q_offset - window + 1) if window > 0 and not pre else 0
     return lo, hi
+
+
+def admitted_queries(kind, window, prefix_len, Sq, Skv, q_offset=0, k_start=0,
+                     rows=None):
+    """The query rows ``[lo, hi)`` (indices into Sq, at positions
+    ``q_offset + i``) that the mask can admit for keys ``k_start ..
+    k_start + rows - 1`` (all Skv keys when ``rows`` is None): the backward's
+    ``q_range`` (``csrc/attention_bwd.cuh``), ``admitted_keys`` turned
+    around."""
+    rows = Skv - k_start if rows is None else rows
+    if kind == "full":
+        return 0, Sq
+    k_last = min(k_start + rows, Skv) - 1
+    in_prefix = kind == "prefix" and 0 < prefix_len and k_start < prefix_len
+    lo = 0 if in_prefix else k_start - q_offset
+    hi = k_last + window - q_offset if window > 0 and not in_prefix else Sq
+    lo = min(max(lo, 0), Sq)
+    return lo, min(max(hi, lo), Sq)
 
 
 class DecodePlan(NamedTuple):
@@ -137,6 +178,56 @@ def attention_plain(q, k, v, spec, *, scale, softcap=0.0, q_offset=0,
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+#: ``out``: the fp32 (B, H, Sq) tensor that ``flash_attention_kernel`` writes
+#: each query row's log-sum-exp into while ``writing_lse`` holds it on the
+#: calling thread. Not a keyword of the function, nor a private function
+#: beside it: the benchmark's ``attention_roofline`` wraps
+#: ``flash_attention_kernel`` and reads each call through a signature with
+#: only today's keywords, so a new keyword would raise there and a call that
+#: bypassed the function would go unread. It becomes a keyword once that
+#: reader accepts any keyword.
+_lse = threading.local()
+
+
+def lse_target() -> Optional[torch.Tensor]:
+    """The tensor ``writing_lse`` holds on this thread, else None."""
+    return getattr(_lse, "out", None)
+
+
+@contextlib.contextmanager
+def writing_lse(lse: torch.Tensor):
+    """Inside the block, ``flash_attention_kernel`` (bf16 only) also writes
+    each query row's log-sum-exp of its scaled (and softcapped) scores into
+    ``lse``, fp32 (B, H, Sq), for the backward kernels; +inf for a row whose
+    keys the mask all removes. Calls on other threads write none."""
+    outer = lse_target()
+    _lse.out = lse
+    try:
+        yield lse
+    finally:
+        _lse.out = outer
+
+
+def _card_operands(*ts):
+    """The tensors as the kernels read them: contiguous and 16-byte aligned
+    (16-byte vector loads), copied where they are not."""
+    return [t if t.data_ptr() % 16 == 0 and t.is_contiguous()
+            else t.clone(memory_format=torch.contiguous_format) for t in ts]
+
+
+def _check_operands(what, q, k, v, dtypes):
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError(f"{what}: q, k and v must be CUDA tensors")
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what}: unsupported dtypes "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, K, hd) or v.shape != k.shape or K == 0 or H % K:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+
+
 def flash_attention_kernel(q, k, v, *, scale: float, softcap: float = 0.0,
                            kind: str = "causal", window: int = 0,
                            prefix_len: int = 0, q_offset: int = 0,
@@ -144,28 +235,26 @@ def flash_attention_kernel(q, k, v, *, scale: float, softcap: float = 0.0,
     """q: (B,Sq,H,hd); k,v: (B,Skv,K,hd) CUDA tensors of one dtype (float32
     or bfloat16) with H % K == 0. Returns (B,Sq,H,hd) in q's dtype.
     ``n_split`` (decode regime only) pins the split count instead of
-    ``decode_split_plan``'s, as the card tests do."""
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention: q, k and v must be CUDA tensors")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: unsupported dtypes "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    ``decode_split_plan``'s, as the card tests do. Inside ``writing_lse``
+    it also writes the rows' log-sum-exp (bf16 only, the wgmma kernel)."""
+    _check_operands("flash_attention", q, k, v, _DTYPES)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    if k.shape != (B, Skv, K, hd) or v.shape != k.shape or K == 0 or H % K:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if kind not in _KINDS:
         raise ValueError(f"flash_attention: unknown mask kind {kind!r}")
-    # The kernel reads 16-byte vectors: contiguous and 16-byte aligned.
-    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 and t.is_contiguous()
-               else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
+    lse = lse_target()
+    if lse is not None and (q.dtype != torch.bfloat16 or n_split is not None
+                            or lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+                            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention: the log-sum-exp is written by bf16 calls "
+                         "without n_split, into a contiguous fp32 (B, H, Sq) tensor "
+                         "on q's device")
+    q, k, v = _card_operands(q, k, v)
     out = torch.empty_like(q)
     splits, workspace = 1 if n_split is None else int(n_split), None
-    if regime(q.dtype, Sq, H, K) == "decode":
+    if lse is None and regime(q.dtype, Sq, H, K) == "decode":
         splits = decode_split_plan(B, Sq, Skv, K, kind, int(window), int(prefix_len),
                                    int(q_offset), n_split).n_split
         n_ws = decode_workspace_floats(B, Sq, H, K, hd, splits)
@@ -177,5 +266,41 @@ def flash_attention_kernel(q, k, v, *, scale: float, softcap: float = 0.0,
         _DTYPES[q.dtype], B, Sq, Skv, H, K, hd, float(scale), float(softcap),
         _KINDS[kind], int(window), int(prefix_len), int(q_offset), splits,
         None if workspace is None else workspace.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         build.stream_of(q)), "flash_attention")
     return out
+
+
+def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, scale: float,
+                               softcap: float = 0.0, kind: str = "causal",
+                               window: int = 0, prefix_len: int = 0,
+                               q_offset: int = 0):
+    """dq, dk and dv of ``flash_attention_kernel``'s bf16 output ``o`` against
+    its gradient ``do``, from ``lse`` (written by the forward inside
+    ``writing_lse``): the backward kernels (``csrc/attention_bwd.cuh``),
+    three launches and no atomics. bf16 CUDA tensors at a head dim of
+    ``BWD_HEAD_DIMS``; the gradients in q's, k's and v's shapes, bf16."""
+    _check_operands("flash_attention_bwd", q, k, v, (torch.bfloat16,))
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {hd} not in {BWD_HEAD_DIMS}")
+    if kind not in _KINDS:
+        raise ValueError(f"flash_attention_bwd: unknown mask kind {kind!r}")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype}, "
+                         f"do {tuple(do.shape)} against q {tuple(q.shape)}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or not lse.is_cuda:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype}")
+    q, k, v, o, do = _card_operands(q, k, v, o, do.to(q.dtype))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = build.load()
+    build.check(lib.repro_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        B, Sq, Skv, H, K, hd, float(scale), float(softcap), _KINDS[kind],
+        int(window), int(prefix_len), int(q_offset), build.stream_of(q)),
+        "flash_attention_bwd")
+    return dq, dk, dv

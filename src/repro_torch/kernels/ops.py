@@ -10,11 +10,16 @@ the kernels. Calls of the kernel functions themselves — as when a check
 compares a kernel with its plain version — do not count.
 
 Autodiff: ``flash_attention``, ``wkv6`` and ``ssd`` are
-``torch.autograd.Function``s whose forward is the kernel and whose backward
-differentiates the plain version, as the JAX package's ``_fa_bwd``,
-``_wkv6_bwd`` and ``_ssd_bwd`` differentiate their XLA paths (the scans at
-``chunk=min(chunk, 32)``). The JAX package has no backward kernel, so the
-port has none either. Each backward runs inside a span
+``torch.autograd.Function``s whose forward is the kernel. A bf16 attention
+call on the card that needs gradients, at a head dim the backward kernels
+take (``flash_attention.backward_regime``), gets dq, dk and dv from them
+(``csrc/attention_bwd.cuh``): its forward writes each query row's
+log-sum-exp beside the output, and ``launches["flash_attention_bwd"]``
+counts the backward calls. Every other backward differentiates the plain
+version, as the JAX package's ``_fa_bwd``, ``_wkv6_bwd`` and ``_ssd_bwd``
+differentiate their XLA paths (the scans at ``chunk=min(chunk, 32)``): the
+CPU path, fp32 attention on the card, head dim 256, and WKV6 and SSD, which
+have no backward kernel. Each plain backward runs inside a span
 (``repro_torch.spans``) named ``<name>_plain_backward``: under a profiler a
 ``record_function`` range, so that a profile can attribute its device time.
 
@@ -38,7 +43,7 @@ from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import wkv6 as _wkv6
 
 launches = {"shard_encode": 0, "shard_decode": 0, "flash_attention": 0,
-            "wkv6": 0, "ssd": 0}
+            "wkv6": 0, "ssd": 0, "flash_attention_bwd": 0}
 #: names of the profiler ranges around the plain backwards.
 BACKWARD_RANGES = ("flash_attention_plain_backward", "wkv6_plain_backward",
                    "ssd_plain_backward")
@@ -100,10 +105,10 @@ def _run_vjp(fn, args, n_diff, grads, name):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, spec, scale, softcap, q_offset):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, spec, scale, softcap, q_offset, grad_enabled):
         ctx.static = (spec, scale, softcap, q_offset)
         if q.is_meta:
+            ctx.save_for_backward(q, k, v, None, None)
             B, Sq, H, hd = q.shape
             Skv, K = k.shape[1], k.shape[2]
             pairs = _cost.admitted_pairs(spec.kind, spec.window, spec.prefix_len,
@@ -111,26 +116,42 @@ class _FlashAttention(torch.autograd.Function):
             return _traced("flash_attention", _cost.attention(
                 B, Sq, Skv, H, K, hd, pairs, itemsize=q.element_size()),
                 torch.empty_like(q))
-        if _on_card(q, "flash_attention"):
-            launches["flash_attention"] += 1
-            return _fa.flash_attention_kernel(
-                q, k, v, scale=scale, softcap=softcap, kind=spec.kind,
-                window=spec.window, prefix_len=spec.prefix_len,
-                q_offset=q_offset)
-        return _fa.attention_plain(q, k, v, spec, scale=scale,
-                                   softcap=softcap, q_offset=q_offset)
+        if not _on_card(q, "flash_attention"):
+            ctx.save_for_backward(q, k, v, None, None)
+            return _fa.attention_plain(q, k, v, spec, scale=scale,
+                                       softcap=softcap, q_offset=q_offset)
+        launches["flash_attention"] += 1
+        mask = dict(scale=scale, softcap=softcap, kind=spec.kind, window=spec.window,
+                    prefix_len=spec.prefix_len, q_offset=q_offset)
+        if not (grad_enabled and any(ctx.needs_input_grad[:3])
+                and _fa.backward_regime(q.dtype, q.shape[-1]) == "wgmma"):
+            ctx.save_for_backward(q, k, v, None, None)
+            return _fa.flash_attention_kernel(q, k, v, **mask)
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        with _fa.writing_lse(lse):
+            o = _fa.flash_attention_kernel(q, k, v, **mask)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, g):
         spec, scale, softcap, q_offset = ctx.static
+        q, k, v, o, lse = ctx.saved_tensors
+        if lse is not None:
+            launches["flash_attention_bwd"] += 1
+            dq, dk, dv = _fa.flash_attention_bwd_kernel(
+                q, k, v, o, lse, g, scale=scale, softcap=softcap, kind=spec.kind,
+                window=spec.window, prefix_len=spec.prefix_len, q_offset=q_offset)
+            return dq, dk, dv, None, None, None, None, None
 
         def plain(q, k, v):
             return (_fa.attention_plain(q, k, v, spec, scale=scale,
                                         softcap=softcap, q_offset=q_offset),)
 
-        dq, dk, dv = _plain_vjp(plain, ctx.saved_tensors, 3, (g,),
+        dq, dk, dv = _plain_vjp(plain, (q, k, v), 3, (g,),
                                 BACKWARD_RANGES[0], ctx.static)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, spec, *, scale, softcap=0.0, q_offset=0,
@@ -144,7 +165,7 @@ def flash_attention(q, k, v, spec, *, scale, softcap=0.0, q_offset=0,
     if is_local is False:
         spec = MaskSpec(spec.kind, window=0, prefix_len=spec.prefix_len)
     return _FlashAttention.apply(q, k, v, spec, float(scale), float(softcap),
-                                 int(q_offset))
+                                 int(q_offset), torch.is_grad_enabled())
 
 
 # ---------------------------------------------------------------------------

@@ -86,7 +86,8 @@ def test_cpu_wrappers_take_plain_path_without_counting():
     ops.shard_decode(c, s, 300)
     assert c.shape == (2, 256) and s.shape == (2,)
     assert ops.launches == {"shard_encode": 0, "shard_decode": 0,
-                            "flash_attention": 0, "wkv6": 0, "ssd": 0}
+                            "flash_attention": 0, "wkv6": 0, "ssd": 0,
+                            "flash_attention_bwd": 0}
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():

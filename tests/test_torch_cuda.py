@@ -185,7 +185,8 @@ def test_encode_state_launches_the_encode_once(gen):
     assert ops.launches["shard_encode"] == 1 and ops.launches["shard_decode"] == 0
     dec = rep.decode_state(enc, manifest)
     assert ops.launches == {"shard_encode": 1, "shard_decode": 1,
-                            "flash_attention": 0, "wkv6": 0, "ssd": 0}
+                            "flash_attention": 0, "wkv6": 0, "ssd": 0,
+                            "flash_attention_bwd": 0}
     assert rep.roundtrip_max_error_ok(state, dec, enc)
     for e, d in zip(enc, T.leaves(dec)):
         if e.kind == "int8":
@@ -369,7 +370,8 @@ def test_wrappers_launch_and_count_on_cuda(gen):
     dt = torch.rand((1, 64, 2), generator=gen, device="cuda") + 0.01
     ops.ssd(x, dt, torch.zeros(2, device="cuda"), bc, bc)[0].sum().backward()
     assert ops.launches == {"shard_encode": 1, "shard_decode": 1,
-                            "flash_attention": 1, "wkv6": 1, "ssd": 1}
+                            "flash_attention": 1, "wkv6": 1, "ssd": 1,
+                            "flash_attention_bwd": 0}
 
 
 def test_flash_attention_gradient_is_the_plain_gradient(gen):

@@ -121,7 +121,8 @@ def test_membership_and_metrics(run):
     assert rep[3]["n_steps"] == 1 and rep[2]["n_steps"] == 3
     # The CPU path runs the plain versions: no kernel was launched.
     assert ops.launches == {"shard_encode": 0, "shard_decode": 0,
-                            "flash_attention": 0, "wkv6": 0, "ssd": 0}
+                            "flash_attention": 0, "wkv6": 0, "ssd": 0,
+                            "flash_attention_bwd": 0}
     with pytest.raises(ValueError):
         tr.step({"tokens": np.zeros((3, SEQ + 1), np.int32)})
 
